@@ -1,0 +1,387 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
+
+Phases, each of which stops the run with a non-zero exit on failure:
+
+1. device: one sm_90 card; prints ``nvidia-smi``'s name and power limit;
+2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one process
+   per source, all at once) and prints the build time;
+3. each CUDA kernel against its plain PyTorch version on the card, over
+   GQA / window / softcap / ragged / dtype / head_dim cases;
+4. the main path: Mistral-NeMo-12B at full width and depth in bf16, random
+   weights from a seeded generator — ``forward`` on a 2048-token prompt and
+   ``generate`` (batch 4, prompt 16, 24 new tokens), with the kernels'
+   launch counters reset before and read after each;
+5. fp32 consistency at Mistral-NeMo width and depth 2: teacher-forced
+   ``decode_step`` against ``forward``, and ``forward`` through the kernels
+   against the plain path on the card;
+6. Gemma-2 smoke width through ``generate`` (window, softcap, post-norms,
+   tied head), kernels against the plain path;
+7. each kernel timed with CUDA events at the main path's shapes beside its
+   bound, its plain version and one PyTorch library call (a yardstick the
+   port never calls).
+
+Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
+Run from the repository root:  python3 chip_smoke.py
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3
+F32_TOL, BF16_TOL = 2e-4, 3e-2
+SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+REPLACES = "src/repro/kernels/flash_attention.py:34"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def check_close(name, got, want, tol) -> float:
+    """|got - want| <= tol + tol*|want| everywhere; returns the max abs error."""
+    import torch
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    excess = (diff - tol * want.float().abs()).max().item()
+    err = diff.max().item()
+    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
+    if excess > tol:
+        fail(f"{name}: outside tolerance {tol}")
+    return err
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    import torch
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def main() -> int:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, autotile, ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     decode_attention_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import generate
+
+    # ---- 1. device --------------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs the card")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        fail(f"need an sm_90 card, got {torch.cuda.get_device_capability(0)}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]}")
+    # fp32 products run in full fp32 (no TF32) in the projections and refs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # ---- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"phase 2 build: {', '.join(_build.sources())} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    for name, text in logs.items():
+        spills = [ln for ln in text.splitlines()
+                  if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+        regs = [int(ln.split("Used ")[1].split()[0])
+                for ln in text.splitlines() if "Used " in ln]
+        log(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
+            f"registers, {len(spills)} with spills (log: "
+            f"{_build.lib_path(name).with_suffix('.log')})")
+
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def rand(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- 3. kernels against their plain versions ---------------------------
+    log("phase 3 kernels vs plain")
+    t0 = time.perf_counter()
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        cases = [((32, 8, 128), 384, 384, True, None, None, 0),
+                 ((16, 8, 256), 384, 384, True, None, None, 0),
+                 ((4, 1, 128), 384, 384, True, None, None, 0)]
+        for window in (None, 16, 4096):
+            for cap in (None, 50.0):
+                T = 4224 if window == 4096 else 640
+                heads = (16, 8, 256) if cap else (32, 8, 128)
+                cases.append((heads, T, T, True, window, cap, 0))
+        cases += [((32, 8, 128), 200, 333, False, None, None, 0),
+                  ((16, 8, 256), 77, 130, False, None, 50.0, 0),
+                  ((32, 8, 128), 64, 512, True, 256, None, 448)]
+        for (Hq, Hkv, D), Tq, Tk, causal, window, cap, off in cases:
+            q, k, v = (rand(1, Hq, Tq, D, dtype=dtype),
+                       rand(1, Hkv, Tk, D, dtype=dtype),
+                       rand(1, Hkv, Tk, D, dtype=dtype))
+            kw = dict(causal=causal, window=window, softcap=cap, offset=off)
+            got = ops.flash_attention(q, k, v, **kw)
+            check_close(f"prefill {tag} H=({Hq},{Hkv}) D={D} Tq={Tq} Tk={Tk} "
+                        f"causal={causal} window={window} softcap={cap} "
+                        f"offset={off}", got, R.attention_ref(q, k, v, **kw),
+                        tol)
+        # every built (head_dim, bq, bk) instantiation, ragged and windowed
+        for D in HEAD_DIMS:
+            q, k, v = (rand(2, 4, 150, D, dtype=dtype),
+                       rand(2, 2, 150, D, dtype=dtype),
+                       rand(2, 2, 150, D, dtype=dtype))
+            want = R.attention_ref(q, k, v, window=40, softcap=30.0)
+            for bq in autotile.BQ_CHOICES:
+                for bk in autotile.BK_CHOICES:
+                    got = flash_attention_cuda(q, k, v, bq=bq, bk=bk,
+                                               window=40, softcap=30.0)
+                    check_close(f"prefill {tag} D={D} tiles=({bq},{bk}) "
+                                "T=150 window=40 softcap=30", got, want, tol)
+            q1 = q[:, :, :1].contiguous()
+            pos = torch.tensor(97, dtype=torch.int32, device=dev)
+            check_close(f"decode {tag} D={D} S=150 pos=97 window=40",
+                        decode_attention_cuda(q1, k, v, pos, window=40),
+                        R.decode_attention_ref(q1, k, v, window=40, pos=97),
+                        tol)
+        for (Hq, Hkv, D) in ((32, 8, 128), (16, 8, 256)):
+            S = 4096
+            q = rand(4, Hq, 1, D, dtype=dtype)
+            k, v = rand(4, Hkv, S, D, dtype=dtype), rand(4, Hkv, S, D,
+                                                         dtype=dtype)
+            for window, cap in ((None, None), (16, 50.0), (1000, None)):
+                for pos in (0, 100, S - 1):
+                    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+                    kw = dict(window=window, softcap=cap)
+                    got = ops.decode_attention(q, k, v, pos=pos_t, **kw)
+                    check_close(f"decode {tag} H=({Hq},{Hkv}) D={D} S={S} "
+                                f"pos={pos} window={window} softcap={cap}",
+                                got, R.decode_attention_ref(q, k, v, pos=pos,
+                                                            **kw), tol)
+    torch.cuda.synchronize()
+    log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
+
+    # ---- 4. main path: mistral_nemo_12b, full width and depth, bf16 --------
+    cfg = get_config("mistral_nemo_12b")
+    log(f"phase 4 main path: {cfg.name} d_model={cfg.d_model} "
+        f"heads=({cfg.n_heads},{cfg.n_kv_heads}) head_dim={cfg.hd} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth {cfg.n_layers} of "
+        f"{cfg.n_layers} (no cut) dtype={cfg.dtype}")
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    log(f"  init: {n_par / 1e9:.3f}B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    L = cfg.n_layers
+    counters = (flash_attention_cuda, decode_attention_cuda)
+
+    def reset():
+        for c in counters:
+            c.launches = 0
+
+    with torch.inference_mode():
+        prompt = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
+                               device=dev, dtype=torch.int32)
+        TF.forward(params, prompt[:, :128], cfg)   # warm-up (cuBLAS etc.)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits, _ = TF.forward(params, prompt, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        fwd_launches = (flash_attention_cuda.launches,
+                        decode_attention_cuda.launches)
+        if fwd_launches != (L, 0):
+            fail(f"forward launches (prefill, decode) = {fwd_launches}, "
+                 f"want ({L}, 0)")
+        if logits.shape != (1, 2048, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail("forward logits: wrong shape or non-finite")
+        log(f"  forward B=1 T=2048: {prefill_ms:.1f} ms "
+            f"({2048 / prefill_ms * 1e3:.0f} prompt tok/s), logits finite, "
+            f"launches prefill={fwd_launches[0]} decode={fwd_launches[1]}")
+        del logits
+
+        B, Tp, new = 4, 16, 24
+        prompts = torch.randint(0, cfg.vocab_size, (B, Tp), generator=gen,
+                                device=dev, dtype=torch.int32)
+        generate(params, cfg, prompts, max_new=2)   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, max_new=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        steps = Tp + new - 1
+        gen_launches = (flash_attention_cuda.launches,
+                        decode_attention_cuda.launches)
+        if gen_launches != (0, L * steps):
+            fail(f"generate launches (prefill, decode) = {gen_launches}, "
+                 f"want (0, {L * steps})")
+        if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp], prompts) \
+                or out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail("generate: wrong shape, prompt not kept or token out of range")
+        log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
+            f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps), "
+            f"{B * new / gen_s:.1f} tok/s, launches prefill={gen_launches[0]} "
+            f"decode={gen_launches[1]}")
+        log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 5. fp32 consistency at mistral width, depth 2 ---------------------
+    tol5 = 1e-3
+    log(f"phase 5 fp32 consistency (tol {tol5:g}: cuBLAS sums in another "
+        "order for the 128-row forward than for the 2-row decode step, and "
+        "the kernel than the plain softmax)")
+    cfg2 = dataclasses.replace(cfg, n_periods=2, dtype="float32")
+    params2 = TF.init_params(cfg2, torch.Generator(dev).manual_seed(1), dev)
+    with torch.inference_mode():
+        toks = torch.randint(0, cfg2.vocab_size, (2, 64), generator=gen,
+                             device=dev, dtype=torch.int32)
+        lk, _ = TF.forward(params2, toks, cfg2)
+        lr, _ = TF.forward(params2, toks, cfg2, backend="ref")
+        check_close("forward kernel vs plain", lk, lr, tol5)
+        state = TF.init_decode_state(cfg2, 2, 64, device=dev)
+        steps = []
+        for t in range(64):
+            lt, state = TF.decode_step(params2, state, toks[:, t], t, cfg2)
+            steps.append(lt)
+        check_close("decode_step vs forward", torch.stack(steps, 1), lk, tol5)
+    del params2, state
+    torch.cuda.empty_cache()
+
+    # ---- 6. gemma2_9b smoke width through generate --------------------------
+    cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
+                               dtype="float32")
+    log(f"phase 6 {cfg3.name}: window {cfg3.layer_pattern[0].window}, "
+        f"softcap {cfg3.attn_softcap}/{cfg3.final_softcap}, post-norm, tied")
+    params3 = TF.init_params(cfg3, torch.Generator(dev).manual_seed(2), dev)
+    with torch.inference_mode():
+        prompts3 = torch.randint(0, cfg3.vocab_size, (2, 24), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        got = generate(params3, cfg3, prompts3, max_new=16)
+        want = generate(params3, cfg3, prompts3, max_new=16, backend="ref")
+        if not torch.equal(got, want):
+            fail("gemma2 smoke: kernel and plain generate disagree")
+        log(f"  generate kernel == plain: {got.shape[1] - 24} new tokens, "
+            f"sample {got[0, -8:].tolist()}")
+        full = got[:, :-1]
+        check_close("gemma2 forward kernel vs plain",
+                    TF.forward(params3, full, cfg3)[0],
+                    TF.forward(params3, full, cfg3, backend="ref")[0], F32_TOL)
+
+    # ---- 7. timings at the main path's shapes ------------------------------
+    log("phase 7 timings (CUDA events; bf16)")
+    bf = torch.bfloat16
+    kernels = []
+    T, Hq, Hkv, D = 2048, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = (rand(1, Hq, T, D, dtype=bf), rand(1, Hkv, T, D, dtype=bf),
+               rand(1, Hkv, T, D, dtype=bf))
+    bq, bk = autotile.attention_tiles(T, T, D)
+    kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk, causal=True)
+    plain = lambda: R.attention_ref(q, k, v, causal=True)
+    lib = _sdpa(q, k, v, causal=True)
+    err = check_close("prefill at the main path's shape", kern(), plain(),
+                      BF16_TOL)
+    flops = 4 * Hq * D * T * (T + 1) / 2
+    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
+    b_ms, b_by = bound(flops, nbytes, bf)
+    kernels.append(_row("flash_attention_prefill", fwd_launches[0], err,
+                        kern, plain, lib, b_ms, b_by,
+                        f"B=1 Hq={Hq} Hkv={Hkv} T={T} D={D} causal "
+                        f"tiles=({bq},{bk})"))
+    S, Bd = 4096, 4
+    q = rand(Bd, Hq, 1, D, dtype=bf)
+    k, v = rand(Bd, Hkv, S, D, dtype=bf), rand(Bd, Hkv, S, D, dtype=bf)
+    pos = torch.tensor(S - 1, dtype=torch.int32, device=dev)
+    kern = lambda: decode_attention_cuda(q, k, v, pos)
+    plain = lambda: R.decode_attention_ref(q, k, v, pos=pos)
+    lib = _sdpa(q, k, v, causal=False)
+    err = check_close("decode at the main path's shape", kern(), plain(),
+                      BF16_TOL)
+    flops = 4 * Bd * Hq * D * S
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound(flops, nbytes, bf)
+    kernels.append(_row("flash_attention_decode", gen_launches[1], err, kern,
+                        plain, lib, b_ms, b_by,
+                        f"B={Bd} Hq={Hq} Hkv={Hkv} cache={S} D={D} "
+                        f"pos={S - 1}"))
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _sdpa(q, k, v, causal):
+    """One PyTorch call computing the same attention (the yardstick)."""
+    import torch.nn.functional as F
+    return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape):
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, reps=5), time_ms(lib)
+    log(f"  {name} [{shape}]: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"max_abs_err {err:.3e}")
+    return {"name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""Public attention API of the port (``repro.kernels.ops``'s counterpart).
+
+The device of the tensors picks the path: a CPU tensor takes the plain
+version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
+kernel, whose wrapper launches it or raises.  Nothing falls back.  The
+kernel masks ragged Tq/Tk itself, so unlike the reference's Pallas path
+these wrappers pad nothing (and the ragged non-causal case is masked, where
+the reference's padding leaked weight onto zero keys).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref as R
+from .autotile import attention_tiles
+from .flash_attention import decode_attention_cuda, flash_attention_cuda
+
+__all__ = ["flash_attention", "decode_attention"]
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None, offset: int = 0) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return R.attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale, offset=offset)
+    bq, bk = attention_tiles(q.shape[2], k.shape[2], q.shape[3])
+    return flash_attention_cuda(q, k, v, bq=bq, bk=bk, causal=causal,
+                                window=window, softcap=softcap, scale=scale,
+                                offset=offset)
+
+
+def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
+                     pos=None) -> torch.Tensor:
+    """Single-token decode over a KV cache: q (B, Hq, 1, D), kv (B, Hkv, S, D).
+    ``pos`` = the query's absolute position, an int or a 0-d int32 tensor on
+    q's device (a tensor keeps the host from waiting on the device);
+    cache entries beyond it are masked (defaults to S − 1, full cache)."""
+    if q.device.type == "cpu":
+        return R.decode_attention_ref(q, k, v, window=window,
+                                      softcap=softcap, scale=scale, pos=pos)
+    if pos is None:
+        pos = k.shape[2] - 1
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=q.device)
+    return decode_attention_cuda(q, k, v, pos, window=window,
+                                 softcap=softcap, scale=scale)

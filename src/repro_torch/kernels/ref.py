@@ -1,0 +1,132 @@
+"""Plain PyTorch versions of the attention kernel (the port's counterpart of
+``repro.kernels.ref``; same semantics, fp32 accumulation):
+
+  attention_ref        : q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D)
+                         causal / sliding-window / logit-softcap / GQA
+  chunked_attention_ref: the same, streamed over kv chunks
+  decode_attention_ref : q (B, Hq, 1, D) over a KV cache (B, Hkv, S, D)
+
+These are what the CPU runs and what the CUDA kernels are held against.
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _mask(tq: int, tk: int, *, causal: bool, window: int | None,
+          offset: int = 0, device=None) -> torch.Tensor:
+    """(tq, tk) boolean mask. ``offset`` = absolute position of q row 0 minus
+    k col 0 (for decode: offset = S - 1)."""
+    qpos = torch.arange(tq, device=device)[:, None] + offset
+    kpos = torch.arange(tk, device=device)[None, :]
+    m = torch.ones((tq, tk), dtype=torch.bool, device=device)
+    if causal:
+        m &= kpos <= qpos
+    if window is not None:
+        m &= kpos > qpos - window
+    return m
+
+
+def _lowp_pv(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """bf16 operands keep fp32 accumulation but P is rounded to bf16 before
+    the PV product, as ``repro.kernels.ref`` does; fp32 stays exact."""
+    return p.to(dtype).float() if dtype == torch.bfloat16 else p
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                  softcap: float | None = None, scale: float | None = None,
+                  offset: int = 0) -> torch.Tensor:
+    """Grouped-query attention without materializing repeated KV: q is
+    reshaped to (B, Hkv, G, Tq, D) and contracted against the shared KV."""
+    B, Hq, Tq, D = q.shape
+    _, Hkv, Tk, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    qg = q.float().reshape(B, Hkv, g, Tq, D)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    m = _mask(Tq, Tk, causal=causal, window=window, offset=offset,
+              device=q.device)
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bhkd->bhgqd", _lowp_pv(p, q.dtype), v.float())
+    return o.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def chunked_attention_ref(q, k, v, *, causal: bool = True,
+                          window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None,
+                          kv_chunk: int = 1024) -> torch.Tensor:
+    """Streaming attention in plain PyTorch: a loop over KV chunks with
+    running (max, sum, acc) — O(T·chunk) score memory instead of O(T²)."""
+    B, Hq, Tq, D = q.shape
+    _, Hkv, Tk, _ = k.shape
+    g = Hq // Hkv
+    scale = scale if scale is not None else D ** -0.5
+    kv_chunk = min(kv_chunk, Tk)
+    if Tk % kv_chunk:
+        raise ValueError(f"Tk={Tk} is not a multiple of kv_chunk={kv_chunk}")
+    dev = q.device
+    qg = q.float().reshape(B, Hkv, g, Tq, D)
+    qpos = torch.arange(Tq, device=dev)
+
+    m = torch.full((B, Hkv, g, Tq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, g, Tq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, g, Tq, D), dtype=torch.float32, device=dev)
+    for c0 in range(0, Tk, kv_chunk):
+        kc = k[:, :, c0:c0 + kv_chunk].float()
+        vc = v[:, :, c0:c0 + kv_chunk].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kc) * scale
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = c0 + torch.arange(kv_chunk, device=dev)
+        mask = torch.ones((Tq, kv_chunk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bhgqk,bhkd->bhgqd", _lowp_pv(p, q.dtype), vc)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = acc / l[..., None]
+    return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def decode_attention_ref(q, k, v, *, window: int | None = None,
+                         softcap: float | None = None,
+                         scale: float | None = None,
+                         pos: int | torch.Tensor | None = None) -> torch.Tensor:
+    """One-token decode: q (B, Hq, 1, D), cache (B, Hkv, S, D).  ``pos`` is
+    the query's absolute position, an int or a 0-d tensor (cache entries
+    beyond it are masked); with a full cache pos = S-1."""
+    B, Hq, Tq, Dh = q.shape
+    _, Hkv, S, _ = k.shape
+    g = Hq // Hkv
+    if pos is None:
+        pos = S - 1
+    sc = scale if scale is not None else Dh ** -0.5
+    qg = q.float().reshape(B, Hkv, g * Tq, Dh)
+    s = torch.einsum("bhqd,bhkd->bhqk", qg, k.float()) * sc
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    kpos = torch.arange(S, device=q.device)
+    m = kpos <= pos
+    if window is not None:
+        m &= kpos > pos - window
+    s = torch.where(m, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", _lowp_pv(p, q.dtype), v.float())
+    return o.reshape(B, Hq, Tq, Dh).to(q.dtype)

@@ -1,0 +1,154 @@
+"""The dense decoder LM of the port: embed → periods → norm → logits
+(``repro.models.transformer``'s counterpart for attention-only, non-MoE
+layer patterns).
+
+Parameters and decode states are nested dicts of tensors with the same
+keys and shapes as the reference's pytrees, stacked over the period axis,
+so :func:`repro_torch.convert.params_from_jax` maps one onto the other
+leaf by leaf.  The period loop is a Python loop (PyTorch runs eagerly).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import blocks as B
+from .common import ModelConfig, check_device, make_dense, rms_norm, softcap
+
+__all__ = ["init_params", "forward", "init_decode_state", "decode_step"]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet."""
+    for spec in cfg.layer_pattern:
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: {spec.kind} blocks are not ported yet")
+        if spec.moe:
+            raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models are not ported yet")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in B.BACKENDS:
+        raise ValueError(f"backend must be one of {B.BACKENDS}, "
+                         f"got {backend!r}")
+
+
+def _period(tree, i: int):
+    """The parameters (or state) of period ``i`` as views of the stacks."""
+    if isinstance(tree, dict):
+        return {k: _period(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
+                device="cuda") -> dict:
+    """Random parameters on ``device`` from ``generator`` (a generator of
+    that device; seeded 0 when omitted).  ``device="meta"`` gives shapes
+    and dtypes only."""
+    check_supported(cfg)
+    device = check_device(device)
+    if generator is None and device.type != "meta":
+        generator = torch.Generator(device).manual_seed(0)
+    d, dt = cfg.d_model, cfg.torch_dtype
+    params = {
+        "embed": {"table": make_dense(generator, (cfg.vocab_size, d), dt,
+                                      device, scale=0.02)},
+        "final_norm": {"scale": torch.zeros((d,), dtype=dt, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": make_dense(generator, (d, cfg.vocab_size),
+                                             dt, device)}
+    lead = (cfg.n_periods,)
+    params["layers"] = {
+        f"pos{i}": {"core": B.attn_init(cfg, generator, device, lead),
+                    "ffn": B.mlp_init(cfg, generator, device, lead)}
+        for i in range(len(cfg.layer_pattern))}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _embed(params, tokens, cfg: ModelConfig):
+    x = params["embed"]["table"][tokens.long()].to(cfg.torch_dtype)
+    if cfg.scale_embeddings:
+        # the factor is rounded to the model dtype first, as the reference does
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.torch_dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(params, x, cfg: ModelConfig):
+    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    head = (params["embed"]["table"].T if cfg.tie_embeddings
+            else params["lm_head"]["w"])
+    return softcap((x @ head.to(x.dtype)).float(), cfg.final_softcap)
+
+
+def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
+            backend: str = "kernel"):
+    """tokens (B, T) int.  Returns fp32 logits (B, T, V) and the MoE aux
+    loss (0 for the dense models ported so far)."""
+    check_supported(cfg)
+    _check_backend(backend)
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix_embeds (vision/audio prefix) is "
+                                  "not ported yet")
+    x = _embed(params, tokens, cfg)
+    Bsz, T, _ = x.shape
+    positions = torch.arange(T, dtype=torch.int32,
+                             device=x.device).expand(Bsz, T)
+    for per in range(cfg.n_periods):
+        pp = _period(params["layers"], per)
+        for i, spec in enumerate(cfg.layer_pattern):
+            p = pp[f"pos{i}"]
+            x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
+            x = B.mlp_fwd(cfg, p["ffn"], x)
+    return _logits(params, x, cfg), 0.0
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device="cuda") -> dict:
+    """KV caches stacked over periods.  Every cache holds ``max_len``
+    positions, a windowed layer's too, as in the reference."""
+    check_supported(cfg)
+    device = check_device(device)
+    return {f"pos{i}": B.attn_init_state(cfg, batch, max_len, device,
+                                         lead=(cfg.n_periods,))
+            for i in range(len(cfg.layer_pattern))}
+
+
+def decode_step(params, state, token, pos, cfg: ModelConfig,
+                backend: str = "kernel"):
+    """token (B,) int; ``pos`` an int or a 0-d int32 tensor on the token's
+    device.  Returns (logits (B, V) fp32, state); the state's caches are
+    updated in place."""
+    check_supported(cfg)
+    _check_backend(backend)
+    if not isinstance(pos, torch.Tensor):
+        pos = torch.full((), pos, dtype=torch.int32, device=token.device)
+    x = _embed(params, token, cfg)[:, None]
+    for per in range(cfg.n_periods):
+        pp = _period(params["layers"], per)
+        st = _period(state, per)
+        for i, spec in enumerate(cfg.layer_pattern):
+            p = pp[f"pos{i}"]
+            x, _ = B.attn_step(cfg, spec, p["core"], x, st[f"pos{i}"], pos,
+                               backend)
+            x = B.mlp_fwd(cfg, p["ffn"], x)
+    return _logits(params, x[:, 0], cfg), state

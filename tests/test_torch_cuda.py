@@ -1,0 +1,130 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need an sm_90 card and skip elsewhere (the kernels have no CPU mode);
+the file imports only torch and repro_torch, so it runs where JAX is absent:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances as in tests/test_kernels.py: fp32 2e-4, bf16 3e-2."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import PORTED_IDS, get_config
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as R
+from repro_torch.kernels.autotile import BK_CHOICES, BQ_CHOICES
+from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                 decode_attention_cuda,
+                                                 flash_attention_cuda)
+from repro_torch.models import transformer as TF
+from repro_torch.serve.engine import generate
+
+pytestmark = pytest.mark.cuda
+
+TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (sm_90); the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _assert_close(got, want, tol):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,Tq,Tk,D,causal,window,softcap,offset", [
+    (4, 2, 64, 64, 128, True, None, None, 0),
+    (8, 1, 100, 100, 256, True, 16, 50.0, 0),
+    (4, 4, 33, 77, 128, False, None, None, 0),
+    (4, 2, 40, 40, 16, True, 16, 30.0, 0),
+    (4, 2, 16, 80, 32, True, None, None, 64),
+])
+def test_prefill_kernel_matches_plain(card, dtype, Hq, Hkv, Tq, Tk, D, causal,
+                                      window, softcap, offset):
+    gen = torch.Generator(card).manual_seed(0)
+    q = _rand(gen, (2, Hq, Tq, D), dtype, card)
+    k = _rand(gen, (2, Hkv, Tk, D), dtype, card)
+    v = _rand(gen, (2, Hkv, Tk, D), dtype, card)
+    kw = dict(causal=causal, window=window, softcap=softcap, offset=offset)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    assert flash_attention_cuda.launches == before + 1
+    _assert_close(got, R.attention_ref(q, k, v, **kw), TOLS[dtype])
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("bq", BQ_CHOICES)
+@pytest.mark.parametrize("bk", BK_CHOICES)
+def test_every_built_tile_matches_plain(card, D, bq, bk):
+    gen = torch.Generator(card).manual_seed(4)
+    for dtype, tol in TOLS.items():
+        q = _rand(gen, (2, 4, 150, D), dtype, card)
+        k = _rand(gen, (2, 2, 150, D), dtype, card)
+        v = _rand(gen, (2, 2, 150, D), dtype, card)
+        got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, window=40,
+                                   softcap=30.0)
+        _assert_close(got, R.attention_ref(q, k, v, window=40, softcap=30.0),
+                      tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("window,softcap", [(None, None), (16, 30.0)])
+def test_decode_kernel_matches_plain(card, dtype, D, window, softcap):
+    gen = torch.Generator(card).manual_seed(1)
+    q = _rand(gen, (2, 8, 1, D), dtype, card)
+    k = _rand(gen, (2, 2, 300, D), dtype, card)
+    v = _rand(gen, (2, 2, 300, D), dtype, card)
+    for pos in (0, 17, 299):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+        before = decode_attention_cuda.launches
+        got = ops.decode_attention(q, k, v, window=window, softcap=softcap,
+                                   pos=pos_t)
+        assert decode_attention_cuda.launches == before + 1
+        want = R.decode_attention_ref(q, k, v, window=window,
+                                      softcap=softcap, pos=pos)
+        _assert_close(got, want, TOLS[dtype])
+
+
+def test_wrappers_reject_what_the_kernel_does_not_take(card):
+    q = torch.zeros((1, 2, 8, 48), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(q, q, q, bq=16, bk=32)
+    q = torch.zeros((1, 2, 8, 16), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3), q, q, bq=16, bk=32)
+    with pytest.raises(ValueError, match="pos"):
+        decode_attention_cuda(q[:, :, :1].contiguous(), q, q,
+                              torch.tensor(3, device=card))
+
+
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_model_kernel_path_matches_plain_path(card, arch):
+    """fp32 smoke width: the kernels against the plain path, forward and
+    teacher-forced decode, and identical greedy tokens."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    params = TF.init_params(cfg, torch.Generator(card).manual_seed(2), card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), device=card,
+                         dtype=torch.int32,
+                         generator=torch.Generator(card).manual_seed(3))
+    fwd, _ = TF.forward(params, toks, cfg)
+    _assert_close(fwd, TF.forward(params, toks, cfg, backend="ref")[0], 1e-4)
+    state = TF.init_decode_state(cfg, 2, 20, device=card)
+    for t in range(20):
+        lt, state = TF.decode_step(params, state, toks[:, t], t, cfg)
+        _assert_close(lt, fwd[:, t], 1e-4)
+    assert torch.equal(generate(params, cfg, toks[:, :8], 6),
+                       generate(params, cfg, toks[:, :8], 6, backend="ref"))
