@@ -6,20 +6,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
 1. device: one sm_90 card; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one process
    per source, all at once) and prints the build time;
-3. each CUDA kernel against its plain PyTorch version on the card, over
-   GQA / window / softcap / ragged / dtype / head_dim cases;
-4. the main path: Mistral-NeMo-12B at full width and depth in bf16, random
-   weights from a seeded generator — ``forward`` on a 2048-token prompt and
-   ``generate`` (batch 4, prompt 16, 24 new tokens), with the kernels'
-   launch counters reset before and read after each;
-5. fp32 consistency at Mistral-NeMo width and depth 2: teacher-forced
-   ``decode_step`` against ``forward``, and ``forward`` through the kernels
-   against the plain path on the card;
+3. each CUDA kernel against its plain PyTorch version on the card: flash
+   attention over GQA / window / softcap / ragged / dtype / head_dim cases,
+   the RWKV-6 recurrence over dtype / head size / (B, H) / ragged T;
+4. the main paths, in bf16 with random weights from a seeded generator, the
+   kernels' launch counters reset before and read after each run:
+   a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
+      2048-token prompt and ``generate`` (batch 4, prompt 16, 24 new);
+   b. RWKV-6 7B at full width and depth — the same two runs (``forward``
+      through the wkv kernel once per layer, ``generate`` through the plain
+      recurrence step, as in the reference);
+5. fp32 consistency at Mistral-NeMo and at RWKV-6 width, depth 2:
+   teacher-forced ``decode_step`` against ``forward``, and ``forward``
+   through the kernels against the plain path on the card;
 6. Gemma-2 smoke width through ``generate`` (window, softcap, post-norms,
    tied head), kernels against the plain path;
-7. each kernel timed with CUDA events at the main path's shapes beside its
-   bound, its plain version and one PyTorch library call (a yardstick the
-   port never calls).
+7. each kernel timed with CUDA events at the main paths' shapes beside its
+   bound, its plain version and, where there is one, one PyTorch library
+   call (a yardstick the port never calls).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -41,8 +45,11 @@ PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 F32_TOL, BF16_TOL = 2e-4, 3e-2
-SOURCE = "src/repro_torch/csrc/flash_attention.cu"
-REPLACES = "src/repro/kernels/flash_attention.py:34"
+SCAN_TOL = 1e-4             # tests/test_kernels.py's fp32 tolerance for scans
+FLASH = dict(source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:34")
+RWKV = dict(source="src/repro_torch/csrc/rwkv6.cu",
+            replaces="src/repro/kernels/rwkv6.py:25")
 
 
 def log(msg: str) -> None:
@@ -82,15 +89,16 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    import torch
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` at ``peak`` FLOP/s and ``nbytes`` at
+    the HBM rate, and which of the two bounds it."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     from repro_torch.configs import get_config
@@ -99,6 +107,8 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      decode_attention_cuda,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.rwkv6 import HEAD_DIMS as RWKV_HEAD_DIMS
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import generate
 
@@ -138,6 +148,14 @@ def main() -> int:
 
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rwkv_inputs(B, H, T, D, dtype):
+        """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1)."""
+        r, v = rand(B, H, T, D, dtype=dtype), rand(B, H, T, D, dtype=dtype)
+        k = (0.3 * rand(B, H, T, D, dtype=torch.float32)).to(dtype)
+        w = torch.sigmoid(rand(B, H, T, D, dtype=torch.float32) + 2.0)
+        u = (0.1 * rand(H, D, dtype=torch.float32)).to(dtype)
+        return r, k, v, w.to(dtype), u
 
     # ---- 3. kernels against their plain versions ---------------------------
     log("phase 3 kernels vs plain")
@@ -197,101 +215,68 @@ def main() -> int:
                                 f"pos={pos} window={window} softcap={cap}",
                                 got, R.decode_attention_ref(q, k, v, pos=pos,
                                                             **kw), tol)
+    # the RWKV-6 recurrence: o at the dtype's tolerance; S_last is fp32 from
+    # the same rounded inputs on both sides, so it is held at the scan's
+    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, BF16_TOL)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for Dk, _ in RWKV_HEAD_DIMS:
+            for B, H in ((1, 64), (2, 4)):
+                for T in (1, 16, 77, 2048):
+                    args = rwkv_inputs(B, H, T, Dk, dtype)
+                    o, s_last = rwkv6_cuda(*args)
+                    o_ref, s_ref = R.rwkv6_ref(*args)
+                    name = f"rwkv6 {tag} D={Dk} B={B} H={H} T={T}"
+                    check_close(f"{name} o", o, o_ref, tol)
+                    check_close(f"{name} S_last", s_last, s_ref, SCAN_TOL)
     torch.cuda.synchronize()
     log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
 
-    # ---- 4. main path: mistral_nemo_12b, full width and depth, bf16 --------
-    cfg = get_config("mistral_nemo_12b")
-    log(f"phase 4 main path: {cfg.name} d_model={cfg.d_model} "
-        f"heads=({cfg.n_heads},{cfg.n_kv_heads}) head_dim={cfg.hd} "
-        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth {cfg.n_layers} of "
-        f"{cfg.n_layers} (no cut) dtype={cfg.dtype}")
-    t0 = time.perf_counter()
-    params = TF.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    n_par = sum(t.numel() for t in _leaves(params))
-    log(f"  init: {n_par / 1e9:.3f}B parameters, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
-        f"{time.perf_counter() - t0:.1f}s")
-    L = cfg.n_layers
-    counters = (flash_attention_cuda, decode_attention_cuda)
+    # ---- 4. main paths at full width and depth, bf16 ----------------------
+    counters = (flash_attention_cuda, decode_attention_cuda, rwkv6_cuda)
 
     def reset():
         for c in counters:
             c.launches = 0
 
-    with torch.inference_mode():
-        prompt = torch.randint(0, cfg.vocab_size, (1, 2048), generator=gen,
-                               device=dev, dtype=torch.int32)
-        TF.forward(params, prompt[:, :128], cfg)   # warm-up (cuBLAS etc.)
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        logits, _ = TF.forward(params, prompt, cfg)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        fwd_launches = (flash_attention_cuda.launches,
-                        decode_attention_cuda.launches)
-        if fwd_launches != (L, 0):
-            fail(f"forward launches (prefill, decode) = {fwd_launches}, "
-                 f"want ({L}, 0)")
-        if logits.shape != (1, 2048, cfg.vocab_size) or \
-                not torch.isfinite(logits).all():
-            fail("forward logits: wrong shape or non-finite")
-        log(f"  forward B=1 T=2048: {prefill_ms:.1f} ms "
-            f"({2048 / prefill_ms * 1e3:.0f} prompt tok/s), logits finite, "
-            f"launches prefill={fwd_launches[0]} decode={fwd_launches[1]}")
-        del logits
+    def launches():
+        """(flash prefill, flash decode, rwkv6) launches since reset()."""
+        return tuple(c.launches for c in counters)
 
-        B, Tp, new = 4, 16, 24
-        prompts = torch.randint(0, cfg.vocab_size, (B, Tp), generator=gen,
-                                device=dev, dtype=torch.int32)
-        generate(params, cfg, prompts, max_new=2)   # warm-up
-        torch.cuda.synchronize()
-        reset()
-        t0 = time.perf_counter()
-        out = generate(params, cfg, prompts, max_new=new)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        steps = Tp + new - 1
-        gen_launches = (flash_attention_cuda.launches,
-                        decode_attention_cuda.launches)
-        if gen_launches != (0, L * steps):
-            fail(f"generate launches (prefill, decode) = {gen_launches}, "
-                 f"want (0, {L * steps})")
-        if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp], prompts) \
-                or out.min() < 0 or out.max() >= cfg.vocab_size:
-            fail("generate: wrong shape, prompt not kept or token out of range")
-        log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
-            f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps), "
-            f"{B * new / gen_s:.1f} tok/s, launches prefill={gen_launches[0]} "
-            f"decode={gen_launches[1]}")
-        log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-            "GiB")
-    del params
-    torch.cuda.empty_cache()
+    # a. Mistral-NeMo-12B: K2 prefill once per layer in forward, K2 decode
+    #    once per layer and step in generate
+    cfg = get_config("mistral_nemo_12b")
+    L = cfg.n_layers
+    log(f"phase 4a main path: {cfg.name} d_model={cfg.d_model} "
+        f"heads=({cfg.n_heads},{cfg.n_kv_heads}) head_dim={cfg.hd} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth {L} of {L} (no cut) "
+        f"dtype={cfg.dtype}")
+    fwd_launches, gen_launches = _serve(
+        cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0),
+        want_gen=lambda steps: (0, L * steps, 0))
 
-    # ---- 5. fp32 consistency at mistral width, depth 2 ---------------------
-    tol5 = 1e-3
-    log(f"phase 5 fp32 consistency (tol {tol5:g}: cuBLAS sums in another "
-        "order for the 128-row forward than for the 2-row decode step, and "
-        "the kernel than the plain softmax)")
-    cfg2 = dataclasses.replace(cfg, n_periods=2, dtype="float32")
-    params2 = TF.init_params(cfg2, torch.Generator(dev).manual_seed(1), dev)
-    with torch.inference_mode():
-        toks = torch.randint(0, cfg2.vocab_size, (2, 64), generator=gen,
-                             device=dev, dtype=torch.int32)
-        lk, _ = TF.forward(params2, toks, cfg2)
-        lr, _ = TF.forward(params2, toks, cfg2, backend="ref")
-        check_close("forward kernel vs plain", lk, lr, tol5)
-        state = TF.init_decode_state(cfg2, 2, 64, device=dev)
-        steps = []
-        for t in range(64):
-            lt, state = TF.decode_step(params2, state, toks[:, t], t, cfg2)
-            steps.append(lt)
-        check_close("decode_step vs forward", torch.stack(steps, 1), lk, tol5)
-    del params2, state
-    torch.cuda.empty_cache()
+    # b. RWKV-6 7B: K4 once per layer in forward; generate runs the plain
+    #    recurrence step (as the reference does) and launches no kernel
+    rcfg = get_config("rwkv6_7b")
+    RL = rcfg.n_layers
+    log(f"phase 4b main path: {rcfg.name} d_model={rcfg.d_model} heads="
+        f"{rcfg.d_model // rcfg.rwkv_head_dim}x{rcfg.rwkv_head_dim} "
+        f"decay_rank={rcfg.rwkv_decay_rank} d_ff={rcfg.d_ff} "
+        f"vocab={rcfg.vocab_size} depth {RL} of {RL} (no cut) "
+        f"dtype={rcfg.dtype}")
+    rwkv_fwd_launches, _ = _serve(
+        rcfg, 3, dev, gen, reset, launches, want_fwd=(0, 0, RL),
+        want_gen=lambda steps: (0, 0, 0))
+
+    # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
+    log("phase 5 fp32 consistency (tol 1e-3: cuBLAS sums in another order "
+        "for the 128-row forward than for the 2-row decode step, and the "
+        "kernels than the plain versions)")
+    _consistency(dataclasses.replace(cfg, n_periods=2, dtype="float32"), 1,
+                 dev, gen, reset, launches, want_fwd=(2, 0, 0))
+    log("  (the RWKV decode step keeps w in fp32, as the forward does in "
+        "fp32)")
+    _consistency(dataclasses.replace(rcfg, n_periods=2, dtype="float32"), 4,
+                 dev, gen, reset, launches, want_fwd=(0, 0, 2))
 
     # ---- 6. gemma2_9b smoke width through generate --------------------------
     cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
@@ -313,7 +298,7 @@ def main() -> int:
                     TF.forward(params3, full, cfg3)[0],
                     TF.forward(params3, full, cfg3, backend="ref")[0], F32_TOL)
 
-    # ---- 7. timings at the main path's shapes ------------------------------
+    # ---- 7. timings at the main paths' shapes -----------------------------
     log("phase 7 timings (CUDA events; bf16)")
     bf = torch.bfloat16
     kernels = []
@@ -328,11 +313,11 @@ def main() -> int:
                       BF16_TOL)
     flops = 4 * Hq * D * T * (T + 1) / 2
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    b_ms, b_by = bound(flops, nbytes, bf)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     kernels.append(_row("flash_attention_prefill", fwd_launches[0], err,
                         kern, plain, lib, b_ms, b_by,
                         f"B=1 Hq={Hq} Hkv={Hkv} T={T} D={D} causal "
-                        f"tiles=({bq},{bk})"))
+                        f"tiles=({bq},{bk})", **FLASH))
     S, Bd = 4096, 4
     q = rand(Bd, Hq, 1, D, dtype=bf)
     k, v = rand(Bd, Hkv, S, D, dtype=bf), rand(Bd, Hkv, S, D, dtype=bf)
@@ -344,17 +329,149 @@ def main() -> int:
                       BF16_TOL)
     flops = 4 * Bd * Hq * D * S
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(flops, nbytes, bf)
+    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     kernels.append(_row("flash_attention_decode", gen_launches[1], err, kern,
                         plain, lib, b_ms, b_by,
                         f"B={Bd} Hq={Hq} Hkv={Hkv} cache={S} D={D} "
-                        f"pos={S - 1}"))
+                        f"pos={S - 1}", **FLASH))
+    # K4 at rwkv6_7b's forward shape: B=1, H=64, T=2048, Dk=Dv=64, bf16
+    Bw, Hw, Tw = 1, rcfg.d_model // rcfg.rwkv_head_dim, 2048
+    Dw = rcfg.rwkv_head_dim
+    args = rwkv_inputs(Bw, Hw, Tw, Dw, bf)
+    kern = lambda: rwkv6_cuda(*args)
+    plain = lambda: R.rwkv6_ref(*args)
+    (o, s_last), (o_ref, s_ref) = kern(), plain()
+    err = check_close("rwkv6 at the main path's shape o", o, o_ref, BF16_TOL)
+    check_close("rwkv6 at the main path's shape S_last", s_last, s_ref,
+                SCAN_TOL)
+    # the r.S product and the S update, 2 flops per state element each, in
+    # fp32 (the state is fp32); r, k, v, w, u read and o written in bf16,
+    # S_last written in fp32
+    flops = 4 * Bw * Hw * Tw * Dw * Dw
+    nbytes = 2 * (5 * Bw * Hw * Tw * Dw + Hw * Dw) + 4 * Bw * Hw * Dw * Dw
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    kernels.append(_row("rwkv6_wkv", rwkv_fwd_launches[2], err, kern, plain,
+                        None, b_ms, b_by,
+                        f"B={Bw} H={Hw} T={Tw} Dk=Dv={Dw} bf16", **RWKV,
+                        no_library="no single PyTorch call computes the wkv "
+                        "recurrence"))
 
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
+    """One main path: ``cfg`` at full width with random weights from
+    ``seed``, ``forward`` on a 2048-token prompt and ``generate`` (batch 4,
+    prompt 16, 24 new), each between ``reset()`` and ``launches()``, which
+    must read ``want_fwd`` and ``want_gen(decode steps)``.  Returns the two
+    launch counts; frees the weights."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import generate
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = TF.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"  init: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}B "
+        f"parameters, {weight_bytes / 2**30:.2f} GiB, "
+        f"{time.perf_counter() - t0:.1f}s")
+    with torch.inference_mode():
+        T = 2048
+        prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
+                               device=dev, dtype=torch.int32)
+        TF.forward(params, prompt[:, :128], cfg)   # warm-up (cuBLAS etc.)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits, _ = TF.forward(params, prompt, cfg)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_launches = launches()
+        if fwd_launches != want_fwd:
+            fail(f"{cfg.name} forward launches (flash prefill, flash decode, "
+                 f"rwkv6) = {fwd_launches}, want {want_fwd}")
+        if logits.shape != (1, T, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"{cfg.name} forward logits: wrong shape or non-finite")
+        del logits
+        # every weight is one product, but an untied embedding table (a
+        # gather); attention scores are not counted
+        mm_flops = 2 * T * (cfg.n_params() - (
+            0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+        log(f"  forward B=1 T={T}: {fwd_ms:.1f} ms ({T / fwd_ms * 1e3:.0f} "
+            f"prompt tok/s), logits finite, launches {fwd_launches}; weight "
+            f"products {mm_flops / 1e12:.2f} TFLOP, bound "
+            f"{mm_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
+
+        B, Tp, new = 4, 16, 24
+        prompts = torch.randint(0, cfg.vocab_size, (B, Tp), generator=gen,
+                                device=dev, dtype=torch.int32)
+        generate(params, cfg, prompts, max_new=2)   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, max_new=new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        steps = Tp + new - 1
+        gen_launches = launches()
+        if gen_launches != want_gen(steps):
+            fail(f"{cfg.name} generate launches (flash prefill, flash "
+                 f"decode, rwkv6) = {gen_launches}, want {want_gen(steps)}")
+        if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp], prompts) \
+                or out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"{cfg.name} generate: wrong shape, prompt not kept or "
+                 "token out of range")
+        log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
+            f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps; "
+            f"weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms), "
+            f"{B * new / gen_s:.1f} tok/s, launches {gen_launches}")
+        log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB")
+    del params
+    torch.cuda.empty_cache()
+    return fwd_launches, gen_launches
+
+
+def _consistency(cfg, seed, dev, gen, reset, launches, *, want_fwd):
+    """fp32 at ``cfg``'s width: ``forward`` through the kernels (launching
+    ``want_fwd``) against the plain path, and 64 teacher-forced
+    ``decode_step`` calls against ``forward``, within 1e-3."""
+    import torch
+
+    from repro_torch.models import transformer as TF
+
+    tol = 1e-3
+    params = TF.init_params(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    with torch.inference_mode():
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                             device=dev, dtype=torch.int32)
+        reset()
+        lk, _ = TF.forward(params, toks, cfg)
+        if launches() != want_fwd:
+            fail(f"{cfg.name} fp32 forward launches {launches()}, want "
+                 f"{want_fwd}")
+        lr, _ = TF.forward(params, toks, cfg, backend="ref")
+        check_close(f"{cfg.name} depth {cfg.n_layers} forward kernel vs "
+                    "plain", lk, lr, tol)
+        state = TF.init_decode_state(cfg, 2, 64, device=dev)
+        steps = []
+        for t in range(64):
+            lt, state = TF.decode_step(params, state, toks[:, t], t, cfg)
+            steps.append(lt)
+        check_close(f"{cfg.name} depth {cfg.n_layers} decode_step vs "
+                    "forward", torch.stack(steps, 1), lk, tol)
+    del params, state
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -372,13 +489,18 @@ def _sdpa(q, k, v, causal):
                                                   enable_gqa=True)
 
 
-def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape):
-    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain, reps=5), time_ms(lib)
+def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape, *,
+         source, replaces, no_library=None):
+    """One entry of the ``kernels`` line; ``lib`` is None (with the reason
+    in ``no_library``) where no PyTorch call computes the same function."""
+    ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
+    lib_ms = time_ms(lib) if lib is not None else None
+    lib_txt = (f"{lib_ms:.4f} ms" if lib_ms is not None
+               else f"none ({no_library})")
     log(f"  {name} [{shape}]: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-        f"max_abs_err {err:.3e}")
-    return {"name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES, "launches": launches, "max_abs_err": err,
+        f"plain {plain_ms:.4f} ms, library {lib_txt}, max_abs_err {err:.3e}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
 

@@ -1,6 +1,7 @@
 """Architecture registry of the PyTorch port: the same ids and aliases as
 ``repro.configs``, with ``full()`` / ``smoke()`` copies for the dense
-decoder LMs the port runs so far.  ``get_config`` raises for the others."""
+decoder LMs and RWKV-6, which the port runs so far.  ``get_config`` raises
+for the others."""
 
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ ARCH_IDS = [
 ]
 
 # ids whose config module and model blocks exist in the port
-PORTED_IDS = ["mistral_nemo_12b", "gemma_7b", "glm4_9b", "gemma2_9b"]
+PORTED_IDS = ["mistral_nemo_12b", "gemma_7b", "glm4_9b", "gemma2_9b",
+              "rwkv6_7b"]
 
 # CLI aliases (--arch uses dashed ids)
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -1,11 +1,14 @@
-"""Public attention API of the port (``repro.kernels.ops``'s counterpart).
+"""Public kernel API of the port (``repro.kernels.ops``'s counterpart):
+attention and the RWKV-6 recurrence.
 
 The device of the tensors picks the path: a CPU tensor takes the plain
 version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
 kernel, whose wrapper launches it or raises.  Nothing falls back.  The
-kernel masks ragged Tq/Tk itself, so unlike the reference's Pallas path
-these wrappers pad nothing (and the ragged non-causal case is masked, where
-the reference's padding leaked weight onto zero keys).
+kernels mask ragged shapes themselves, so unlike the reference's Pallas
+path these wrappers pad nothing and assert no multiple of a tile (the
+ragged non-causal attention case is masked, where the reference's padding
+leaked weight onto zero keys; ``rwkv6`` takes any T, where the reference
+asserts ``T % 64 == 0`` above 64).
 """
 
 from __future__ import annotations
@@ -15,8 +18,9 @@ import torch
 from . import ref as R
 from .autotile import attention_tiles
 from .flash_attention import decode_attention_cuda, flash_attention_cuda
+from .rwkv6 import rwkv6_cuda
 
-__all__ = ["flash_attention", "decode_attention"]
+__all__ = ["flash_attention", "decode_attention", "rwkv6"]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -45,3 +49,11 @@ def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
         pos = torch.full((), pos, dtype=torch.int32, device=q.device)
     return decode_attention_cuda(q, k, v, pos, window=window,
                                  softcap=softcap, scale=scale)
+
+
+def rwkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 wkv: r/k/w (B, H, T, Dk), v (B, H, T, Dv), u (H, Dk) →
+    (o (B, H, T, Dv) in r.dtype, S_last (B, H, Dk, Dv) fp32)."""
+    if r.device.type == "cpu":
+        return R.rwkv6_ref(r, k, v, w, u)
+    return rwkv6_cuda(r, k, v, w, u)

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the attention kernel (the port's counterpart of
-``repro.kernels.ref``; same semantics, fp32 accumulation):
+"""Plain PyTorch versions of the attention and RWKV-6 kernels (the port's
+counterpart of ``repro.kernels.ref``; same semantics, fp32 accumulation):
 
   attention_ref        : q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D)
                          causal / sliding-window / logit-softcap / GQA
   chunked_attention_ref: the same, streamed over kv chunks
   decode_attention_ref : q (B, Hq, 1, D) over a KV cache (B, Hkv, S, D)
+  rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
 
 These are what the CPU runs and what the CUDA kernels are held against.
 """
@@ -130,3 +131,28 @@ def decode_attention_ref(q, k, v, *, window: int | None = None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", _lowp_pv(p, q.dtype), v.float())
     return o.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+def rwkv6_ref(r, k, v, w, u, s0=None):
+    """RWKV-6 (Finch) wkv: per head, state S (Dk, Dv):
+
+        o_t = rᵗ · (S + diag(u) kᵗ vᵗᵀ)
+        S   = diag(w_t) S + kᵗ vᵗᵀ            (w_t data-dependent, in (0,1))
+
+    r/k/w (B, H, T, Dk), v (B, H, T, Dv), u (H, Dk); fp32 state and
+    arithmetic.  Returns (o (B, H, T, Dv) in r.dtype, S_last (B, H, Dk, Dv)
+    fp32)."""
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    rf, kf, vf, wf = (t.float() for t in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    S = (torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    outs = []
+    for t in range(T):
+        kv = kf[:, :, t, :, None] * vf[:, :, t, None, :]       # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], S + uf * kv))
+        S = wf[:, :, t, :, None] * S + kv
+    o = (torch.stack(outs, dim=2) if outs else
+         torch.zeros((B, H, 0, Dv), dtype=torch.float32, device=r.device))
+    return o.to(r.dtype), S

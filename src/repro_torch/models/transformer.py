@@ -1,6 +1,6 @@
-"""The dense decoder LM of the port: embed → periods → norm → logits
-(``repro.models.transformer``'s counterpart for attention-only, non-MoE
-layer patterns).
+"""The decoder LM of the port: embed → periods → norm → logits
+(``repro.models.transformer``'s counterpart for layer patterns of attention
+blocks with a dense FFN and of RWKV-6 blocks; no MoE or Mamba yet).
 
 Parameters and decode states are nested dicts of tensors with the same
 keys and shapes as the reference's pytrees, stacked over the period axis,
@@ -23,7 +23,7 @@ __all__ = ["init_params", "forward", "init_decode_state", "decode_step"]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     for spec in cfg.layer_pattern:
-        if spec.kind != "attn":
+        if spec.kind not in ("attn", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} blocks are not ported yet")
         if spec.moe:
@@ -70,10 +70,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                                              dt, device)}
     lead = (cfg.n_periods,)
     params["layers"] = {
-        f"pos{i}": {"core": B.attn_init(cfg, generator, device, lead),
-                    "ffn": B.mlp_init(cfg, generator, device, lead)}
-        for i in range(len(cfg.layer_pattern))}
+        f"pos{i}": _block_init(cfg, spec, generator, device, lead)
+        for i, spec in enumerate(cfg.layer_pattern)}
     return params
+
+
+def _block_init(cfg: ModelConfig, spec, generator, device, lead) -> dict:
+    if spec.kind == "rwkv":   # the RWKV block holds its own channel mix
+        return {"core": B.rwkv_init(cfg, generator, device, lead)}
+    return {"core": B.attn_init(cfg, generator, device, lead),
+            "ffn": B.mlp_init(cfg, generator, device, lead)}
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +105,7 @@ def _logits(params, x, cfg: ModelConfig):
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
             backend: str = "kernel"):
     """tokens (B, T) int.  Returns fp32 logits (B, T, V) and the MoE aux
-    loss (0 for the dense models ported so far)."""
+    loss (0 for the models ported so far)."""
     check_supported(cfg)
     _check_backend(backend)
     if prefix_embeds is not None:
@@ -113,8 +119,11 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
         pp = _period(params["layers"], per)
         for i, spec in enumerate(cfg.layer_pattern):
             p = pp[f"pos{i}"]
-            x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
-            x = B.mlp_fwd(cfg, p["ffn"], x)
+            if spec.kind == "rwkv":   # time mix and channel mix in one
+                x = B.rwkv_fwd(cfg, p["core"], x, backend)
+            else:
+                x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
+                x = B.mlp_fwd(cfg, p["ffn"], x)
     return _logits(params, x, cfg), 0.0
 
 
@@ -124,20 +133,23 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> dict:
-    """KV caches stacked over periods.  Every cache holds ``max_len``
-    positions, a windowed layer's too, as in the reference."""
+    """KV caches (attention) or recurrent states (RWKV) stacked over
+    periods.  Every cache holds ``max_len`` positions, a windowed layer's
+    too, as in the reference; an RWKV state does not depend on it."""
     check_supported(cfg)
     device = check_device(device)
-    return {f"pos{i}": B.attn_init_state(cfg, batch, max_len, device,
-                                         lead=(cfg.n_periods,))
-            for i in range(len(cfg.layer_pattern))}
+    lead = (cfg.n_periods,)
+    return {f"pos{i}": (B.rwkv_init_state(cfg, batch, device, lead)
+                        if spec.kind == "rwkv" else
+                        B.attn_init_state(cfg, batch, max_len, device, lead))
+            for i, spec in enumerate(cfg.layer_pattern)}
 
 
 def decode_step(params, state, token, pos, cfg: ModelConfig,
                 backend: str = "kernel"):
     """token (B,) int; ``pos`` an int or a 0-d int32 tensor on the token's
-    device.  Returns (logits (B, V) fp32, state); the state's caches are
-    updated in place."""
+    device.  Returns (logits (B, V) fp32, state); the state's caches and
+    recurrent states are updated in place."""
     check_supported(cfg)
     _check_backend(backend)
     if not isinstance(pos, torch.Tensor):
@@ -148,7 +160,10 @@ def decode_step(params, state, token, pos, cfg: ModelConfig,
         st = _period(state, per)
         for i, spec in enumerate(cfg.layer_pattern):
             p = pp[f"pos{i}"]
-            x, _ = B.attn_step(cfg, spec, p["core"], x, st[f"pos{i}"], pos,
-                               backend)
-            x = B.mlp_fwd(cfg, p["ffn"], x)
+            if spec.kind == "rwkv":
+                x, _ = B.rwkv_step(cfg, p["core"], x, st[f"pos{i}"])
+            else:
+                x, _ = B.attn_step(cfg, spec, p["core"], x, st[f"pos{i}"],
+                                   pos, backend)
+                x = B.mlp_fwd(cfg, p["ffn"], x)
     return _logits(params, x[:, 0], cfg), state

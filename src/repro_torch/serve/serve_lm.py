@@ -1,9 +1,11 @@
 """Batched serving example of the port: prefill + greedy decode with KV
-caches, the twin of ``examples/serve_lm.py``.  Serves the reduced (smoke)
-config of a dense decoder LM the port runs.
+caches or recurrent states, the twin of ``examples/serve_lm.py``.  Serves
+the reduced (smoke) config of a decoder LM the port runs (the dense LMs or
+RWKV-6).
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm \
           --arch mistral_nemo_12b --batch 4 --new 24
+      (--arch rwkv6_7b for RWKV-6)
       (add --device cpu to run the plain path on the CPU)
 """
 

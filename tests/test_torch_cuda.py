@@ -5,7 +5,8 @@ the file imports only torch and repro_torch, so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances as in tests/test_kernels.py: fp32 2e-4, bf16 3e-2."""
+Tolerances as in tests/test_kernels.py: fp32 2e-4 (attention) and 1e-4
+(the RWKV-6 scan), bf16 3e-2."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ from repro_torch.kernels.autotile import BK_CHOICES, BQ_CHOICES
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
+from repro_torch.kernels.rwkv6 import rwkv6_cuda
 from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import generate
 
@@ -109,6 +111,53 @@ def test_wrappers_reject_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="pos"):
         decode_attention_cuda(q[:, :, :1].contiguous(), q, q,
                               torch.tensor(3, device=card))
+
+
+def _rwkv_inputs(gen, B, H, T, D, dtype, dev):
+    """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1)."""
+    r = _rand(gen, (B, H, T, D), dtype, dev)
+    k = (torch.randn((B, H, T, D), generator=gen, device=dev) * 0.3).to(dtype)
+    v = _rand(gen, (B, H, T, D), dtype, dev)
+    w = torch.sigmoid(torch.randn((B, H, T, D), generator=gen, device=dev)
+                      + 2.0).to(dtype)
+    u = (torch.randn((H, D), generator=gen, device=dev) * 0.1).to(dtype)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("B,H", [(1, 64), (2, 4)])
+@pytest.mark.parametrize("T", [1, 16, 77, 2048])
+def test_rwkv6_kernel_matches_plain(card, dtype, D, B, H, T):
+    """o at the dtype's tolerance; S_last is fp32 from the same rounded
+    inputs on both sides, so it is held at the scan's fp32 1e-4."""
+    gen = torch.Generator(card).manual_seed(5)
+    args = _rwkv_inputs(gen, B, H, T, D, dtype, card)
+    before = rwkv6_cuda.launches
+    o, s = ops.rwkv6(*args)
+    assert rwkv6_cuda.launches == before + 1
+    assert o.dtype == dtype and s.dtype == torch.float32
+    o_ref, s_ref = R.rwkv6_ref(*args)
+    _assert_close(o, o_ref, 1e-4 if dtype == torch.float32 else 3e-2)
+    _assert_close(s, s_ref, 1e-4)
+
+
+def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(card).manual_seed(6)
+    r, k, v, w, u = _rwkv_inputs(gen, 1, 2, 8, 16, torch.float32, card)
+    with pytest.raises(ValueError, match="not built"):
+        rwkv6_cuda(*_rwkv_inputs(gen, 1, 2, 8, 32, torch.float32, card))
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_cuda(r.transpose(2, 3), k, v, w, u)
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        rwkv6_cuda(r, k.bfloat16(), v, w, u)
+    with pytest.raises(ValueError, match="not supported"):
+        rwkv6_cuda(*(t.half() for t in (r, k, v, w, u)))
+    with pytest.raises(ValueError, match="u has shape"):
+        rwkv6_cuda(r, k, v, w, u[:1])
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.zeros(r.numel() + 1, device=card)
+        rwkv6_cuda(flat[1:].view(r.shape), k, v, w, u)
 
 
 @pytest.mark.parametrize("arch", PORTED_IDS)

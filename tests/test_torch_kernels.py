@@ -1,10 +1,11 @@
-"""The port's attention (repro_torch.kernels) against the JAX reference
-(repro.kernels) on the CPU, with inputs made by numpy from a seed.  The
-CUDA kernels themselves are held against these plain versions by
-tests/test_torch_cuda.py and chip_smoke.py on the card.
+"""The port's attention and RWKV-6 recurrence (repro_torch.kernels) against
+the JAX reference (repro.kernels) on the CPU, with inputs made by numpy from
+a seed.  The CUDA kernels themselves are held against these plain versions
+by tests/test_torch_cuda.py and chip_smoke.py on the card.
 
-Tolerances are those of tests/test_kernels.py: fp32 2e-4 (streaming vs
-direct softmax), bf16 3e-2 (bf16 operands and P)."""
+Tolerances are those of tests/test_kernels.py: fp32 2e-4 for attention
+(streaming vs direct softmax) and 1e-4 for the scans, bf16 3e-2 (bf16
+operands and P)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +15,16 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.rwkv6 import rwkv6_pallas
 from repro_torch.kernels import ops, autotile
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
+from repro_torch.kernels.rwkv6 import rwkv6_cuda
 
 F32_TOL = 2e-4
+SCAN_TOL = 1e-4
 BF16_TOL = 3e-2
 
 
@@ -175,3 +179,96 @@ def test_ops_never_fall_back_off_the_cpu():
         ops.flash_attention(q, k, v)
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, :, :1], k, v, pos=3)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 recurrence (K4's plain versions)
+# ---------------------------------------------------------------------------
+
+def _rwkv_case(B, H, T, Dk, Dv, seed=0):
+    """tests/test_kernels.py's _rwkv_case, drawn with numpy: w in (0, 1)."""
+    rs = np.random.RandomState(seed)
+    r = rs.standard_normal((B, H, T, Dk)).astype(np.float32)
+    k = (rs.standard_normal((B, H, T, Dk)) * 0.3).astype(np.float32)
+    v = rs.standard_normal((B, H, T, Dv)).astype(np.float32)
+    w = (1 / (1 + np.exp(-(rs.standard_normal((B, H, T, Dk)) + 2.0)))
+         ).astype(np.float32)
+    u = (rs.standard_normal((H, Dk)) * 0.1).astype(np.float32)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("T,bt", [(32, 8), (64, 16), (16, 16)])
+def test_rwkv6_ref_vs_pallas_interpret(T, bt):
+    j, t = _both(_rwkv_case(2, 2, T, 8, 8, seed=1))
+    o, s = TR.rwkv6_ref(*t)
+    assert o.dtype == torch.float32 and s.shape == (2, 2, 8, 8)
+    o_p, s_p = rwkv6_pallas(*j, bt=bt, interpret=True)
+    o_r, s_r = JR.rwkv6_ref(*j)
+    for got, want in ((o, o_p), (s, s_p), (o, o_r), (s, s_r)):
+        _close(got, want, SCAN_TOL)
+
+
+def test_rwkv6_state_handoff():
+    """Two halves with the state handed over == the full sequence (the
+    invariant behind decode and the chunked path), in the port and against
+    the reference's ``s0`` path."""
+    j, t = _both(_rwkv_case(1, 2, 32, 8, 8, seed=2))
+    o_full, s_full = TR.rwkv6_ref(*t)
+    r, k, v, w, u = t
+    o1, s1 = TR.rwkv6_ref(r[:, :, :16], k[:, :, :16], v[:, :, :16],
+                          w[:, :, :16], u)
+    o2, s2 = TR.rwkv6_ref(r[:, :, 16:], k[:, :, 16:], v[:, :, 16:],
+                          w[:, :, 16:], u, s0=s1)
+    _close(o2, np.asarray(o_full[:, :, 16:]), SCAN_TOL)
+    _close(s2, np.asarray(s_full), SCAN_TOL)
+    jr, jk, jv, jw, ju = j
+    _, js1 = JR.rwkv6_ref(jr[:, :, :16], jk[:, :, :16], jv[:, :, :16],
+                          jw[:, :, :16], ju)
+    jo2, js2 = JR.rwkv6_ref(jr[:, :, 16:], jk[:, :, 16:], jv[:, :, 16:],
+                            jw[:, :, 16:], ju, s0=js1)
+    _close(o2, jo2, SCAN_TOL)
+    _close(s2, js2, SCAN_TOL)
+
+
+@pytest.mark.parametrize("T,chunk", [(32, 8), (48, 16), (16, 64)])
+def test_rwkv6_ref_matches_reference_chunked(T, chunk):
+    """The port's one loop over T gives what the reference's chunked
+    recurrence gives, so the port needs no chunked version."""
+    j, t = _both(_rwkv_case(2, 2, T, 8, 8, seed=3))
+    o, s = TR.rwkv6_ref(*t)
+    o_j, s_j = JR.chunked_rwkv6_ref(*j, chunk=chunk)
+    _close(o, o_j, SCAN_TOL)
+    _close(s, s_j, SCAN_TOL)
+
+
+def test_rwkv6_ref_bf16():
+    """bf16 inputs: fp32 state and arithmetic, o rounded to bf16, S fp32."""
+    j, t = _both(_rwkv_case(1, 2, 24, 16, 16, seed=4), "bfloat16")
+    o, s = TR.rwkv6_ref(*t)
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    o_j, s_j = JR.rwkv6_ref(*j)
+    _close(o, o_j, BF16_TOL)
+    _close(s, s_j, SCAN_TOL)
+
+
+def test_ops_rwkv6_cpu_never_reaches_the_cuda_wrapper(monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA wrapper")
+
+    monkeypatch.setattr(ops, "rwkv6_cuda", boom)
+    j, t = _both(_rwkv_case(1, 2, 20, 16, 16, seed=5))
+    o, s = ops.rwkv6(*t)
+    o_j, s_j = jops.rwkv6(*j, backend="ref")
+    _close(o, o_j, SCAN_TOL)
+    _close(s, s_j, SCAN_TOL)
+
+
+def test_rwkv6_cuda_rejects_cpu_and_meta_tensors():
+    _, t = _both(_rwkv_case(1, 2, 16, 16, 16))
+    before = rwkv6_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rwkv6_cuda(*t)
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.rwkv6(*meta)    # off the CPU, ops goes to the wrapper or raises
+    assert rwkv6_cuda.launches == before

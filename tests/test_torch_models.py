@@ -1,7 +1,8 @@
-"""The port's dense decoder LM (repro_torch.models / serve) against the JAX
-reference (repro.models / serve) on the CPU: parameters initialized by
-``repro`` and converted, token inputs made by numpy from a seed.  Plus the
-guards that keep the port apart from JAX and from ``repro``.
+"""The port's decoder LMs (dense and RWKV-6; repro_torch.models / serve)
+against the JAX reference (repro.models / serve) on the CPU: parameters
+initialized by ``repro`` and converted, token inputs made by numpy from a
+seed.  Plus the guards that keep the port apart from JAX and from
+``repro``.
 
 fp32 tolerance 1e-4 (tests/test_arch_smoke.py's decode-vs-forward bound)."""
 
@@ -103,10 +104,14 @@ def test_forward_and_decode_match_reference(arch):
         np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=TOL, atol=TOL)
         np.testing.assert_allclose(_f32(tl), _f32(tlog[:, t]), rtol=TOL,
                                    atol=TOL)
+    # every leaf of the state: KV caches, or RWKV's token shifts and wkv
     for key in jstate:
-        for kv in ("k", "v"):
-            np.testing.assert_allclose(_f32(tstate[key][kv]),
-                                       _f32(jstate[key][kv]),
+        assert set(tstate[key]) == set(jstate[key]), key
+        for leaf in jstate[key]:
+            assert tstate[key][leaf].dtype == \
+                getattr(torch, np.asarray(jstate[key][leaf]).dtype.name)
+            np.testing.assert_allclose(_f32(tstate[key][leaf]),
+                                       _f32(jstate[key][leaf]),
                                        rtol=TOL, atol=TOL)
 
 
@@ -134,17 +139,48 @@ def test_chunked_prefill_path_matches_reference():
         np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=TOL, atol=TOL)
 
 
-def test_forward_bf16_matches_reference():
+def _check_forward_bf16(arch):
     """bf16 weights and activations: both sides round every product and
     norm to bf16 (eps 2^-8 ≈ 3.9e-3), but XLA and PyTorch round at
     different places and sum in different orders, so logits of magnitude
     ~1 agree to a few bf16 ulps: 5e-2."""
-    jcfg, jparams, tcfg, tparams = _setup("mistral_nemo_12b", "bfloat16")
+    jcfg, jparams, tcfg, tparams = _setup(arch, "bfloat16")
     toks = _tokens(tcfg, 2, 8, seed=4)
     jlog, _ = JTF.forward(jparams, jax.numpy.asarray(toks), jcfg)
     tlog, _ = TF.forward(tparams, torch.from_numpy(toks), tcfg)
     assert tparams["embed"]["table"].dtype == torch.bfloat16
     np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=5e-2, atol=5e-2)
+
+
+def test_forward_bf16_matches_reference():
+    _check_forward_bf16("mistral_nemo_12b")
+
+
+def test_rwkv_forward_bf16_matches_reference():
+    """RWKV-6 in bf16: w is rounded to bf16 before the recurrence, as in
+    the reference's forward."""
+    _check_forward_bf16("rwkv6_7b")
+
+
+def test_rwkv_chunked_path_matches_reference():
+    """Above chunk_threshold the reference runs the recurrence over
+    ``scan_chunk``-long chunks; the port's one loop over T gives the same
+    logits, on either backend and at a T that is no multiple of the chunk."""
+    over = dict(chunk_threshold=8, scan_chunk=4)
+    jcfg, jparams, tcfg, tparams = _setup("rwkv6_7b", **over)
+    toks = _tokens(tcfg, 1, 24, seed=3)
+    jlog, _ = JTF.forward(jparams, jax.numpy.asarray(toks), jcfg)
+    for backend in ("kernel", "ref"):
+        tlog, _ = TF.forward(tparams, torch.from_numpy(toks), tcfg,
+                             backend=backend)
+        np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=TOL, atol=TOL)
+    # the reference's chunks need T % scan_chunk == 0; its unchunked
+    # recurrence takes the ragged T the port takes above the threshold
+    ragged = _tokens(tcfg, 1, 23, seed=3)
+    jlog, _ = JTF.forward(jparams, jax.numpy.asarray(ragged),
+                          dataclasses.replace(jcfg, chunk_threshold=0))
+    tlog, _ = TF.forward(tparams, torch.from_numpy(ragged), tcfg)
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=TOL, atol=TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -162,24 +198,63 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
         serve_lm.main(["--new", "2"])
 
 
-def test_init_params_shapes_and_seed():
-    cfg = get_config("gemma2_9b", reduced=True)
+def _check_init_params(arch):
+    cfg = get_config(arch, reduced=True)
     a = TF.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     b = TF.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
     meta = TF.init_params(cfg, device="meta")
     ref = jax.eval_shape(lambda: JTF.init_params(
-        jax_get_config("gemma2_9b", reduced=True), jax.random.PRNGKey(0)))
+        jax_get_config(arch, reduced=True), jax.random.PRNGKey(0)))
     flat_ref = {jax.tree_util.keystr(k): v for k, v in
                 jax.tree_util.tree_leaves_with_path(ref)}
-    flat = {jax.tree_util.keystr(k): v for k, v in
-            jax.tree_util.tree_leaves_with_path(a)}
-    assert set(flat) == set(flat_ref)
+    flat, flat_b, flat_meta = (
+        {jax.tree_util.keystr(k): v for k, v in
+         jax.tree_util.tree_leaves_with_path(tree)} for tree in (a, b, meta))
+    assert set(flat) == set(flat_ref) == set(flat_meta)
     for k, v in flat.items():
         assert tuple(v.shape) == flat_ref[k].shape, k
         assert v.dtype == torch.bfloat16
-    assert torch.equal(a["layers"]["pos0"]["core"]["wq"]["w"],
-                       b["layers"]["pos0"]["core"]["wq"]["w"])
-    assert meta["embed"]["table"].device.type == "meta"
+        assert torch.equal(v, flat_b[k]), k     # same seed, same weights
+        assert flat_meta[k].device.type == "meta"
+    return a, flat_ref
+
+
+def test_init_params_shapes_and_seed():
+    a, _ = _check_init_params("gemma2_9b")
+    assert "ffn" in a["layers"]["pos0"]
+
+
+def test_rwkv_init_params_shapes_and_seed():
+    a, flat_ref = _check_init_params("rwkv6_7b")
+    assert set(a["layers"]["pos0"]) == {"core"}     # channel mix inside
+    core = a["layers"]["pos0"]["core"]
+    assert torch.equal(core["time_decay"],
+                       torch.full_like(core["time_decay"], -4.0))
+    assert any("w_lora_a" in k for k in flat_ref)
+
+
+def test_params_from_jax_takes_the_rwkv_tree():
+    """The RWKV pytree converts leaf by leaf, unchanged: the same keys,
+    shapes, dtypes and bits as repro's init."""
+    jcfg = jax_get_config("rwkv6_7b", reduced=True)
+    jparams = JTF.init_params(jcfg, jax.random.PRNGKey(7))
+    tree = jax.tree.map(np.asarray, jparams)
+    got = params_from_jax(tree, get_config("rwkv6_7b", reduced=True),
+                          device="cpu")
+    flat = {jax.tree_util.keystr(k): v for k, v in
+            jax.tree_util.tree_leaves_with_path(got)}
+    flat_ref = {jax.tree_util.keystr(k): v for k, v in
+                jax.tree_util.tree_leaves_with_path(tree)}
+    assert set(flat) == set(flat_ref) and len(flat) == 15
+    for k, v in flat.items():
+        assert v.dtype == torch.bfloat16, k
+        np.testing.assert_array_equal(v.float().numpy(),
+                                      flat_ref[k].astype(np.float32))
+    bad = jax.tree.map(np.asarray, jparams)
+    bad["layers"]["pos0"]["ffn"] = bad["layers"]["pos0"]["core"]["ck"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(bad, get_config("rwkv6_7b", reduced=True),
+                        device="cpu")
 
 
 def test_unsupported_features_raise():
@@ -213,6 +288,14 @@ def test_serve_lm_twin_runs_on_cpu(capsys):
                          "--prompt-len", "3", "--new", "2"])
     assert out.shape == (2, 5)
     assert "tok/s on CPU" in capsys.readouterr().out
+
+
+def test_serve_lm_twin_runs_rwkv_on_cpu(capsys):
+    out = serve_lm.main(["--device", "cpu", "--arch", "rwkv6_7b",
+                         "--batch", "2", "--prompt-len", "3", "--new", "2"])
+    assert out.shape == (2, 5)
+    printed = capsys.readouterr().out
+    assert "arch=rwkv6-smoke" in printed and "tok/s on CPU" in printed
 
 
 def _port_files():
