@@ -5,10 +5,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
 
 1. device: one sm_90 card; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one process
-   per source, all at once) and prints the build time;
+   per source, all at once) and prints the build time, registers and
+   spills;
 3. each CUDA kernel against its plain PyTorch version on the card: flash
    attention over GQA / window / softcap / ragged / dtype / head_dim cases,
-   the RWKV-6 recurrence over dtype / head size / (B, H) / ragged T;
+   the RWKV-6 recurrence over dtype / head size / (B, H) / ragged T, the
+   Mamba selective scan over dtype / state size / (Bt, L, Dm);
 4. the main paths, in bf16 with random weights from a seeded generator, the
    kernels' launch counters reset before and read after each run:
    a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
@@ -16,11 +18,17 @@ Phases, each of which stops the run with a non-zero exit on failure:
    b. RWKV-6 7B at full width and depth — the same two runs (``forward``
       through the wkv kernel once per layer, ``generate`` through the plain
       recurrence step, as in the reference);
-5. fp32 consistency at Mistral-NeMo and at RWKV-6 width, depth 2:
-   teacher-forced ``decode_step`` against ``forward``, and ``forward``
-   through the kernels against the plain path on the card;
-6. Gemma-2 smoke width through ``generate`` (window, softcap, post-norms,
-   tied head), kernels against the plain path;
+   c. Jamba-1.5-Large at full width, the first 7 layers of its 8-layer
+      period (a whole period does not fit the card) — the same two runs
+      (``forward`` through the scan kernel once per Mamba layer and the
+      attention kernel once; ``generate`` through the plain Mamba step);
+5. fp32 consistency at Mistral-NeMo and RWKV-6 width (depth 2) and at
+   Jamba width (Mamba, Mamba + MoE and attention layers, capacity factor
+   8.0): teacher-forced ``decode_step`` against ``forward``, and
+   ``forward`` through the kernels against the plain path on the card;
+6. Gemma-2 smoke width (window, softcap, post-norms, tied head) and Jamba
+   smoke width in fp32 at its own capacity factor (MoE drops in decode)
+   through ``generate``, kernels against the plain path;
 7. each kernel timed with CUDA events at the main paths' shapes beside its
    bound, its plain version and, where there is one, one PyTorch library
    call (a yardstick the port never calls).
@@ -50,6 +58,9 @@ FLASH = dict(source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:34")
 RWKV = dict(source="src/repro_torch/csrc/rwkv6.cu",
             replaces="src/repro/kernels/rwkv6.py:25")
+SSM = dict(source="src/repro_torch/csrc/ssm_scan.cu",
+           replaces="src/repro/kernels/ssm_scan.py:28")
+BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
 
 
 def log(msg: str) -> None:
@@ -109,6 +120,8 @@ def main() -> int:
                                                      flash_attention_cuda)
     from repro_torch.kernels.rwkv6 import HEAD_DIMS as RWKV_HEAD_DIMS
     from repro_torch.kernels.rwkv6 import rwkv6_cuda
+    from repro_torch.kernels.ssm_scan import STATE_DIMS, ssm_scan_cuda
+    from repro_torch.models import blocks
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import generate
 
@@ -156,6 +169,16 @@ def main() -> int:
         w = torch.sigmoid(rand(B, H, T, D, dtype=torch.float32) + 2.0)
         u = (0.1 * rand(H, D, dtype=torch.float32)).to(dtype)
         return r, k, v, w.to(dtype), u
+
+    def ssm_inputs(Bt, L, Dm, N, dtype):
+        """x, dt, A, B, C, D as tests/test_kernels.py draws them (dt after a
+        softplus, A < 0); A and D fp32, as the Mamba block passes them."""
+        x = rand(Bt, L, Dm, dtype=dtype)
+        dt = torch.nn.functional.softplus(
+            rand(Bt, L, Dm, dtype=torch.float32) - 1.0).to(dtype)
+        A = -torch.exp(0.5 * rand(Dm, N, dtype=torch.float32))
+        B, C = rand(Bt, L, N, dtype=dtype), rand(Bt, L, N, dtype=dtype)
+        return x, dt, A, B, C, torch.full((Dm,), 0.5, device=dev)
 
     # ---- 3. kernels against their plain versions ---------------------------
     log("phase 3 kernels vs plain")
@@ -228,18 +251,34 @@ def main() -> int:
                     name = f"rwkv6 {tag} D={Dk} B={B} H={H} T={T}"
                     check_close(f"{name} o", o, o_ref, tol)
                     check_close(f"{name} S_last", s_last, s_ref, SCAN_TOL)
+    # the Mamba selective scan: y and h_last are fp32 sums of the same
+    # inputs on both sides (1e-4); a bf16 y is rounded once from them, so
+    # the two may differ by one bf16 ulp
+    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, BF16_ULP)):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for N in STATE_DIMS:
+            for Bt, L, Dm in ((1, 2048, 16384), (2, 77, 48), (2, 1, 32),
+                              (2, 16, 32)):
+                args = ssm_inputs(Bt, L, Dm, N, dtype)
+                y, h_last = ssm_scan_cuda(*args)
+                y_ref, h_ref = R.selective_scan_ref(*args)
+                name = f"ssm_scan {tag} N={N} Bt={Bt} L={L} Dm={Dm}"
+                check_close(f"{name} y", y, y_ref, tol)
+                check_close(f"{name} h_last", h_last, h_ref, SCAN_TOL)
     torch.cuda.synchronize()
     log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
 
     # ---- 4. main paths at full width and depth, bf16 ----------------------
-    counters = (flash_attention_cuda, decode_attention_cuda, rwkv6_cuda)
+    counters = (flash_attention_cuda, decode_attention_cuda, rwkv6_cuda,
+                ssm_scan_cuda)
 
     def reset():
         for c in counters:
             c.launches = 0
 
     def launches():
-        """(flash prefill, flash decode, rwkv6) launches since reset()."""
+        """(flash prefill, flash decode, rwkv6, ssm_scan) launches since
+        reset()."""
         return tuple(c.launches for c in counters)
 
     # a. Mistral-NeMo-12B: K2 prefill once per layer in forward, K2 decode
@@ -251,8 +290,8 @@ def main() -> int:
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth {L} of {L} (no cut) "
         f"dtype={cfg.dtype}")
     fwd_launches, gen_launches = _serve(
-        cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0),
-        want_gen=lambda steps: (0, L * steps, 0))
+        cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0, 0),
+        want_gen=lambda steps: (0, L * steps, 0, 0))
 
     # b. RWKV-6 7B: K4 once per layer in forward; generate runs the plain
     #    recurrence step (as the reference does) and launches no kernel
@@ -264,19 +303,55 @@ def main() -> int:
         f"vocab={rcfg.vocab_size} depth {RL} of {RL} (no cut) "
         f"dtype={rcfg.dtype}")
     rwkv_fwd_launches, _ = _serve(
-        rcfg, 3, dev, gen, reset, launches, want_fwd=(0, 0, RL),
-        want_gen=lambda steps: (0, 0, 0))
+        rcfg, 3, dev, gen, reset, launches, want_fwd=(0, 0, RL, 0),
+        want_gen=lambda steps: (0, 0, 0, 0))
+
+    # c. Jamba-1.5-Large: K3 once per Mamba layer and K2 prefill once in
+    #    forward; generate runs the plain Mamba step (as the reference does)
+    #    and K2 decode once per step in its attention layer
+    full = get_config("jamba_1_5_large_398b")
+    jcfg = dataclasses.replace(full, layer_pattern=full.layer_pattern[:7],
+                               n_periods=1)
+    kinds = ", ".join(f"{i}:{s.kind}{'+moe' if s.moe else ''}"
+                      for i, s in enumerate(jcfg.layer_pattern))
+    n_mamba = sum(s.kind == "mamba" for s in jcfg.layer_pattern)
+    n_attn = sum(s.kind == "attn" for s in jcfg.layer_pattern)
+    one_period = dataclasses.replace(full, n_periods=1)
+    log(f"phase 4c main path: {jcfg.name} d_model={jcfg.d_model} "
+        f"d_inner={jcfg.d_inner} d_state={jcfg.d_state} dt_rank={jcfg.dtr} "
+        f"d_conv={jcfg.d_conv} heads=({jcfg.n_heads},{jcfg.n_kv_heads})x"
+        f"{jcfg.hd} experts={jcfg.n_experts} top-{jcfg.top_k} "
+        f"d_ff={jcfg.d_ff} vocab={jcfg.vocab_size} dtype={jcfg.dtype}")
+    log(f"  cut: layers [{kinds}] of the first period, {jcfg.n_layers} of "
+        f"{full.n_layers}: one whole period is "
+        f"{one_period.n_params() / 1e9:.2f}B parameters, "
+        f"{one_period.n_params() * 2 / 2**30:.2f} GiB in bf16, more than "
+        "the card holds; the first 7 layers keep every layer kind (Mamba, "
+        "Mamba + MoE, attention) at full width")
+    jamba_fwd_launches, _ = _serve(
+        jcfg, 5, dev, gen, reset, launches, want_fwd=(n_attn, 0, 0, n_mamba),
+        want_gen=lambda steps: (0, n_attn * steps, 0, 0))
 
     # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
     log("phase 5 fp32 consistency (tol 1e-3: cuBLAS sums in another order "
         "for the 128-row forward than for the 2-row decode step, and the "
         "kernels than the plain versions)")
     _consistency(dataclasses.replace(cfg, n_periods=2, dtype="float32"), 1,
-                 dev, gen, reset, launches, want_fwd=(2, 0, 0))
+                 dev, gen, reset, launches, want_fwd=(2, 0, 0, 0))
     log("  (the RWKV decode step keeps w in fp32, as the forward does in "
         "fp32)")
     _consistency(dataclasses.replace(rcfg, n_periods=2, dtype="float32"), 4,
-                 dev, gen, reset, launches, want_fwd=(0, 0, 2))
+                 dev, gen, reset, launches, want_fwd=(0, 0, 2, 0))
+    pat = full.layer_pattern
+    log("  (Jamba: layers 0, 1 and 4 — Mamba, Mamba + MoE, attention — at "
+        "capacity factor 8.0, so neither the forward nor a decode step "
+        "drops a token; the Mamba decode step keeps dt in fp32, as the "
+        "forward does in fp32)")
+    _consistency(dataclasses.replace(full, layer_pattern=(pat[0], pat[1],
+                                                          pat[4]),
+                                     n_periods=1, dtype="float32",
+                                     capacity_factor=8.0), 6,
+                 dev, gen, reset, launches, want_fwd=(1, 0, 0, 2))
 
     # ---- 6. gemma2_9b smoke width through generate --------------------------
     cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
@@ -293,10 +368,40 @@ def main() -> int:
             fail("gemma2 smoke: kernel and plain generate disagree")
         log(f"  generate kernel == plain: {got.shape[1] - 24} new tokens, "
             f"sample {got[0, -8:].tolist()}")
-        full = got[:, :-1]
+        seq = got[:, :-1]
         check_close("gemma2 forward kernel vs plain",
-                    TF.forward(params3, full, cfg3)[0],
-                    TF.forward(params3, full, cfg3, backend="ref")[0], F32_TOL)
+                    TF.forward(params3, seq, cfg3)[0],
+                    TF.forward(params3, seq, cfg3, backend="ref")[0], F32_TOL)
+    del params3
+    # Jamba smoke in fp32 at its own capacity factor: at batch 4 a decode
+    # step has capacity 3 per expert for 8 choices, so MoE drops happen on
+    # the card and must pick the same tokens as the plain path
+    cfg4 = dataclasses.replace(get_config("jamba_1_5_large_398b",
+                                          reduced=True), dtype="float32")
+    log(f"phase 6 {cfg4.name}: fp32, capacity factor "
+        f"{cfg4.capacity_factor}, d_state {cfg4.d_state}")
+    params4 = TF.init_params(cfg4, torch.Generator(dev).manual_seed(7), dev)
+    with torch.inference_mode():
+        prompts4 = torch.randint(0, cfg4.vocab_size, (4, 24), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        got = generate(params4, cfg4, prompts4, max_new=16)
+        want = generate(params4, cfg4, prompts4, max_new=16, backend="ref")
+        if not torch.equal(got, want):
+            fail("jamba smoke: kernel and plain generate disagree")
+        log(f"  generate kernel == plain: {got.shape[1] - 24} new tokens, "
+            f"sample {got[0, -8:].tolist()}")
+        seq = got[:, :-1]
+        want4 = tuple(cfg4.n_periods * sum(s.kind == kind
+                                           for s in cfg4.layer_pattern)
+                      for kind in ("attn", "", "", "mamba"))
+        reset()
+        lk, aux_k = TF.forward(params4, seq, cfg4)
+        if launches() != want4:
+            fail(f"jamba smoke forward launches {launches()}, want {want4}")
+        lr, aux_r = TF.forward(params4, seq, cfg4, backend="ref")
+        check_close("jamba smoke forward kernel vs plain", lk, lr, F32_TOL)
+        check_close("jamba smoke aux kernel vs plain", aux_k, aux_r, F32_TOL)
+    del params4
 
     # ---- 7. timings at the main paths' shapes -----------------------------
     log("phase 7 timings (CUDA events; bf16)")
@@ -355,6 +460,46 @@ def main() -> int:
                         f"B={Bw} H={Hw} T={Tw} Dk=Dv={Dw} bf16", **RWKV,
                         no_library="no single PyTorch call computes the wkv "
                         "recurrence"))
+    # K3 at jamba's forward shape: Bt=1, L=2048, Dm=d_inner, N=d_state, bf16
+    Bs, Ls, Ds, Ns = 1, 2048, jcfg.d_inner, jcfg.d_state
+    args = ssm_inputs(Bs, Ls, Ds, Ns, bf)
+    kern = lambda: ssm_scan_cuda(*args)
+    plain = lambda: R.selective_scan_ref(*args)
+    (y, h_last), (y_ref, h_ref) = kern(), plain()
+    err = check_close("ssm_scan at the main path's shape y", y, y_ref,
+                      BF16_ULP)
+    check_close("ssm_scan at the main path's shape h_last", h_last, h_ref,
+                SCAN_TOL)
+    # per (l, d, n): dt*A, dA*h, (dt*x)*B, the add, h*C and its sum, in
+    # fp32 (the exps run on the special-function units, not counted); x,
+    # dt, B, C read and y written in bf16, A, D read and h_last written in
+    # fp32
+    flops = 6 * Bs * Ls * Ds * Ns
+    nbytes = (2 * (3 * Bs * Ls * Ds + 2 * Bs * Ls * Ns)
+              + 4 * (Ds * Ns + Ds + Bs * Ds * Ns))
+    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    kernels.append(_row("ssm_scan", jamba_fwd_launches[3], err, kern, plain,
+                        None, b_ms, b_by,
+                        f"Bt={Bs} L={Ls} Dm={Ds} N={Ns} bf16", **SSM,
+                        no_library="no PyTorch call computes the selective "
+                        "scan"))
+    # one Jamba decode step's MoE FFN and Mamba step at full width (batch 4:
+    # MoE capacity 1, so every expert's weights are read for one row),
+    # each against reading its weights once
+    with torch.inference_mode():
+        xm = rand(4, 1, jcfg.d_model, dtype=bf)
+        moe_p = blocks.moe_init(jcfg, torch.Generator(dev).manual_seed(8),
+                                dev)
+        _step_vs_weights(f"MoE FFN decode step [B=4 C="
+                         f"{blocks.moe_capacity(jcfg, 4)}]", moe_p,
+                         lambda: blocks.moe_fwd(jcfg, moe_p, xm))
+        del moe_p
+        mamba_p = blocks.mamba_init(jcfg, torch.Generator(dev).manual_seed(9),
+                                    dev)
+        state = blocks.mamba_init_state(jcfg, 4, dev)
+        _step_vs_weights("Mamba decode step [B=4]", mamba_p,
+                         lambda: blocks.mamba_step(jcfg, mamba_p, xm, state))
+        del mamba_p, state
 
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
@@ -398,15 +543,12 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
         fwd_launches = launches()
         if fwd_launches != want_fwd:
             fail(f"{cfg.name} forward launches (flash prefill, flash decode, "
-                 f"rwkv6) = {fwd_launches}, want {want_fwd}")
+                 f"rwkv6, ssm_scan) = {fwd_launches}, want {want_fwd}")
         if logits.shape != (1, T, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
             fail(f"{cfg.name} forward logits: wrong shape or non-finite")
         del logits
-        # every weight is one product, but an untied embedding table (a
-        # gather); attention scores are not counted
-        mm_flops = 2 * T * (cfg.n_params() - (
-            0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+        mm_flops = _weight_flops(cfg, T)
         log(f"  forward B=1 T={T}: {fwd_ms:.1f} ms ({T / fwd_ms * 1e3:.0f} "
             f"prompt tok/s), logits finite, launches {fwd_launches}; weight "
             f"products {mm_flops / 1e12:.2f} TFLOP, bound "
@@ -426,7 +568,8 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
         gen_launches = launches()
         if gen_launches != want_gen(steps):
             fail(f"{cfg.name} generate launches (flash prefill, flash "
-                 f"decode, rwkv6) = {gen_launches}, want {want_gen(steps)}")
+                 f"decode, rwkv6, ssm_scan) = {gen_launches}, want "
+                 f"{want_gen(steps)}")
         if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp], prompts) \
                 or out.min() < 0 or out.max() >= cfg.vocab_size:
             fail(f"{cfg.name} generate: wrong shape, prompt not kept or "
@@ -440,6 +583,38 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
     del params
     torch.cuda.empty_cache()
     return fwd_launches, gen_launches
+
+
+def _weight_flops(cfg, n_tok: int) -> float:
+    """Flops (2 per multiply-add) of the weight products of one ``forward``
+    over ``n_tok`` tokens, as the code computes them: an MoE layer's
+    experts run on their E·C capacity rows (``moe_capacity``), not on every
+    token times every expert, beside the router and the shared experts per
+    token; a Mamba layer's in, x, dt and out projections; the untied
+    embedding is a gather, the head one product.  Attention scores and the
+    scans are not counted."""
+    from repro_torch.models.blocks import moe_capacity
+
+    d, V = cfg.d_model, cfg.vocab_size
+    per_tok, rows = 0, 0        # multiply-adds per token, and per MoE layer
+    for spec in cfg.layer_pattern:
+        if spec.kind == "rwkv":  # rkvwg, out, cr, decay LoRA, channel mix
+            per_tok += 6 * d * d + 2 * d * cfg.rwkv_decay_rank \
+                + 2 * d * cfg.d_ff
+            continue
+        if spec.kind == "attn":
+            per_tok += d * cfg.hd * (cfg.n_heads + 2 * cfg.n_kv_heads) \
+                + cfg.n_heads * cfg.hd * d
+        else:
+            di, r, N = cfg.d_inner, cfg.dtr, cfg.d_state
+            per_tok += d * 2 * di + di * (r + 2 * N) + r * di + di * d
+        if spec.moe:
+            f = cfg.d_ff_e
+            per_tok += d * cfg.n_experts + cfg.n_shared_experts * 3 * d * f
+            rows += cfg.n_experts * moe_capacity(cfg, n_tok) * 3 * d * f
+        else:
+            per_tok += (3 if cfg.glu else 2) * d * cfg.d_ff
+    return 2 * (cfg.n_periods * (n_tok * per_tok + rows) + n_tok * d * V)
 
 
 def _consistency(cfg, seed, dev, gen, reset, launches, *, want_fwd):
@@ -472,6 +647,15 @@ def _consistency(cfg, seed, dev, gen, reset, launches, *, want_fwd):
                     "forward", torch.stack(steps, 1), lk, tol)
     del params, state
     torch.cuda.empty_cache()
+
+
+def _step_vs_weights(name, params, fn) -> None:
+    """Logs ``fn``'s time (CUDA events) beside the time to read ``params``
+    once at the HBM rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    ms = time_ms(fn)
+    log(f"  {name}: {ms:.4f} ms, weight-read bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms ({nbytes / 1e9:.2f} GB)")
 
 
 def _leaves(tree):

@@ -1,7 +1,8 @@
 """Architecture registry of the PyTorch port: the same ids and aliases as
-``repro.configs``, with ``full()`` / ``smoke()`` copies for the dense
-decoder LMs and RWKV-6, which the port runs so far.  ``get_config`` raises
-for the others."""
+``repro.configs``, with ``full()`` / ``smoke()`` copies for the decoder LMs
+the port runs so far: the dense LMs, RWKV-6, the Jamba hybrid (Mamba +
+attention + MoE) and the two MoE LMs.  ``get_config`` raises for the
+others (the encoder-decoder and the vision-prefix models)."""
 
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ ARCH_IDS = [
 
 # ids whose config module and model blocks exist in the port
 PORTED_IDS = ["mistral_nemo_12b", "gemma_7b", "glm4_9b", "gemma2_9b",
-              "rwkv6_7b"]
+              "rwkv6_7b", "jamba_1_5_large_398b", "deepseek_moe_16b",
+              "llama4_scout_17b_a16e"]
 
 # CLI aliases (--arch uses dashed ids)
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

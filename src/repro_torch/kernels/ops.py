@@ -1,5 +1,5 @@
 """Public kernel API of the port (``repro.kernels.ops``'s counterpart):
-attention and the RWKV-6 recurrence.
+attention, the Mamba selective scan and the RWKV-6 recurrence.
 
 The device of the tensors picks the path: a CPU tensor takes the plain
 version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
@@ -8,7 +8,8 @@ kernels mask ragged shapes themselves, so unlike the reference's Pallas
 path these wrappers pad nothing and assert no multiple of a tile (the
 ragged non-causal attention case is masked, where the reference's padding
 leaked weight onto zero keys; ``rwkv6`` takes any T, where the reference
-asserts ``T % 64 == 0`` above 64).
+asserts ``T % 64 == 0`` above 64; ``ssm_scan`` takes any L and Dm, where
+the reference asserts multiples of its 128-wide blocks).
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from . import ref as R
 from .autotile import attention_tiles
 from .flash_attention import decode_attention_cuda, flash_attention_cuda
 from .rwkv6 import rwkv6_cuda
+from .ssm_scan import ssm_scan_cuda
 
-__all__ = ["flash_attention", "decode_attention", "rwkv6"]
+__all__ = ["flash_attention", "decode_attention", "ssm_scan", "rwkv6"]
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
@@ -49,6 +51,14 @@ def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
         pos = torch.full((), pos, dtype=torch.int32, device=q.device)
     return decode_attention_cuda(q, k, v, pos, window=window,
                                  softcap=softcap, scale=scale)
+
+
+def ssm_scan(x, dt, A, B, C, D) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba S6 scan: x/dt (Bt, L, Dm), A (Dm, N), B/C (Bt, L, N), D (Dm,)
+    → (y (Bt, L, Dm) in x.dtype, h_last (Bt, Dm, N) fp32)."""
+    if x.device.type == "cpu":
+        return R.selective_scan_ref(x, dt, A, B, C, D)
+    return ssm_scan_cuda(x, dt, A, B, C, D)
 
 
 def rwkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the attention and RWKV-6 kernels (the port's
-counterpart of ``repro.kernels.ref``; same semantics, fp32 accumulation):
+"""Plain PyTorch versions of the attention, selective-scan and RWKV-6
+kernels (the port's counterpart of ``repro.kernels.ref``; same semantics,
+fp32 accumulation):
 
   attention_ref        : q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D)
                          causal / sliding-window / logit-softcap / GQA
   chunked_attention_ref: the same, streamed over kv chunks
   decode_attention_ref : q (B, Hq, 1, D) over a KV cache (B, Hkv, S, D)
+  selective_scan_ref   : the Mamba S6 scan, a loop over L
   rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
 
 These are what the CPU runs and what the CUDA kernels are held against.
@@ -156,3 +158,29 @@ def rwkv6_ref(r, k, v, w, u, s0=None):
     o = (torch.stack(outs, dim=2) if outs else
          torch.zeros((B, H, 0, Dv), dtype=torch.float32, device=r.device))
     return o.to(r.dtype), S
+
+
+def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
+    """Mamba S6 selective scan (diagonal, real A < 0), per channel d and
+    state n, with an fp32 state h (Bt, Dm, N):
+
+        h_l = exp(dt_l·A)·h_{l-1} + (dt_l·x_l)·B_l,    y_l = h_l·C_l + x_l·D
+
+    x/dt (Bt, L, Dm) (dt after the softplus), A (Dm, N), B/C (Bt, L, N),
+    D_skip (Dm,).  One loop over L that holds only h, where the reference
+    runs an associative scan over (Bt, L, Dm, N) tensors (at Jamba's width
+    four of 2.1 GB each).  Returns (y (Bt, L, Dm) in x.dtype, h_last
+    (Bt, Dm, N) fp32)."""
+    Bt, L, Dm = x.shape
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    Af = A.float()
+    h = (torch.zeros((Bt, Dm, A.shape[1]), dtype=torch.float32,
+                     device=x.device) if h0 is None else h0.float())
+    ys = []
+    for l in range(L):
+        h = (torch.exp(dtf[:, l, :, None] * Af) * h
+             + (dtf[:, l] * xf[:, l])[:, :, None] * Bf[:, l, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, l]))
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((Bt, 0, Dm), dtype=torch.float32, device=x.device))
+    return (y + xf * D_skip.float()).to(x.dtype), h

@@ -1,17 +1,19 @@
-"""Blocks of the decoder LMs: GQA attention, the dense GLU FFN and RWKV-6
-(time mix + channel mix) — ``repro.models.blocks``'s counterparts; the MoE
-and Mamba blocks are not ported yet.
+"""Blocks of the decoder LMs: GQA attention, the dense GLU FFN, the MoE
+FFN, Mamba and RWKV-6 (time mix + channel mix) — ``repro.models.blocks``'s
+counterparts.
 
-Every block provides ``init``, ``fwd`` (full sequence) and, for attention
-and RWKV, ``init_state`` / ``step`` (one token with a KV cache or a
+Every block provides ``init``, ``fwd`` (full sequence) and, for attention,
+Mamba and RWKV, ``init_state`` / ``step`` (one token with a KV cache or a
 recurrent state).  ``lead`` is the leading shape of period-stacked
-parameters and states.  ``backend`` "kernel" sends attention and the wkv
-recurrence through :mod:`repro_torch.kernels.ops` (the CUDA kernels on a
-card, the plain versions on the CPU); "ref" runs the plain versions on any
-device, as the reference's ``KB = "ref"`` does.
+parameters and states.  ``backend`` "kernel" sends attention, the selective
+scan and the wkv recurrence through :mod:`repro_torch.kernels.ops` (the CUDA
+kernels on a card, the plain versions on the CPU); "ref" runs the plain
+versions on any device, as the reference's ``KB = "ref"`` does.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -146,9 +148,23 @@ def mlp_init(cfg: ModelConfig, gen, device, lead=(), d_ff=None) -> dict:
     return p
 
 
+def _sigmoid(t):
+    """``1 / (1 + exp(-t))`` op by op in t's dtype: in bf16 this rounds
+    where the reference's ``jax.nn.sigmoid`` does (``torch.sigmoid`` rounds
+    once, and the bf16 logits then drift past the parity tolerance)."""
+    return 1 / (1 + torch.exp(-t))
+
+
+def _silu(t):
+    """``t · sigmoid(t)`` op by op, rounding in bf16 where the reference's
+    ``jax.nn.silu`` does (``F.silu`` rounds once; in the hybrid and MoE
+    models that one rounding flips router near-ties)."""
+    return t * _sigmoid(t)
+
+
 def _act(cfg):
     if cfg.activation == "silu":
-        return F.silu
+        return _silu
     return lambda t: F.gelu(t, approximate="tanh")
 
 
@@ -163,6 +179,207 @@ def mlp_fwd(cfg: ModelConfig, p, x):
     if cfg.post_block_norm:
         o = rms_norm(o, p["post_norm"]["scale"], cfg.norm_eps)
     return x + o
+
+
+# ===========================================================================
+# MoE FFN (shared + routed experts; GShard-style capacity dispatch)
+# ===========================================================================
+
+def moe_init(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    d, f, E, dt = cfg.d_model, cfg.d_ff_e, cfg.n_experts, cfg.torch_dtype
+    p = {
+        "norm": {"scale": _zeros(lead, d, cfg, device)},
+        "router": _dense(gen, lead, d, E, cfg, device),
+        "experts": {
+            "w_up": make_dense(gen, (*lead, E, d, f), dt, device),
+            "w_gate": make_dense(gen, (*lead, E, d, f), dt, device),
+            "w_down": make_dense(gen, (*lead, E, f, d), dt, device),
+        },
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        p["shared"] = {"up": _dense(gen, lead, d, fs, cfg, device),
+                       "gate": _dense(gen, lead, d, fs, cfg, device),
+                       "down": _dense(gen, lead, fs, d, cfg, device)}
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tok: int) -> int:
+    """Slots per expert for ``n_tok`` tokens: max(1, min(ceil(n_tok·k·
+    capacity_factor / E), n_tok)), the float product as the reference
+    computes it."""
+    C = math.ceil(n_tok * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(1, min(C, n_tok))
+
+
+def moe_fwd(cfg: ModelConfig, p, x):
+    """Token-choice top-k with capacity dispatch: x (B, T, d) → (x +
+    moe(x), router aux loss), the aux returned where the reference puts it
+    on the ``moe_fwd.aux`` side channel.  The reference's shard_map dispatch
+    (``_moe_fwd_shardmap``) needs a mesh, which the port has not yet."""
+    B, T, d = x.shape
+    h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    y, aux = _moe_local(cfg, p, h.reshape(B * T, d))
+    return x + y.reshape(B, T, d), aux
+
+
+def _moe_local(cfg: ModelConfig, p, ht):
+    """The MoE of ``n_tok`` tokens, ht (n_tok, d), exactly as the
+    reference's ``_moe_local`` routes, drops and combines:
+
+    - top-k of the fp32 softmax, ties to the lower expert index (as
+      ``jax.lax.top_k``; a stable descending sort, where ``torch.topk``
+      promises no order among ties), gates renormalized in fp32;
+    - capacity C = :func:`moe_capacity`; a choice's slot is its rank
+      among the choices of its expert in the token-major (n_tok·k) order,
+      and a choice ranked ≥ C is dropped (its token adds a zero row at slot
+      C − 1; the gather reads slot 0 and masks it);
+    - the expert products in the model dtype (cuBLAS batched products, as
+      XLA einsums in the reference); the output summed slot by slot, j = 0
+      … k−1, in the model dtype, each gate cast to it first;
+    - aux = router_aux_coef · E · Σ_e mean-prob_e · choice-share_e, the
+      dropped choices counted."""
+    E, k = cfg.n_experts, cfg.top_k
+    n_tok, d = ht.shape
+    experts = p["experts"]
+
+    probs = torch.softmax((ht @ p["router"]["w"]).float(), dim=-1)
+    gate_vals, eids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, eids = gate_vals[:, :k], eids[:, :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # load-balancing aux loss (Switch-style)
+    flat_e = eids.reshape(-1)                                  # (n_tok·k,)
+    onehot = F.one_hot(flat_e, E)
+    ce = onehot.sum(0).float() / (n_tok * k)
+    aux = cfg.router_aux_coef * E * torch.sum(probs.mean(dim=0) * ce)
+
+    C = moe_capacity(cfg, n_tok)
+    pos_k = (onehot.cumsum(0) - 1).gather(1, flat_e[:, None]).reshape(n_tok, k)
+    keep = pos_k < C
+
+    buf = torch.zeros((E, C, d), dtype=ht.dtype, device=ht.device)
+    scatter_at = torch.where(keep, pos_k, C - 1)
+    for j in range(k):
+        buf.index_put_((eids[:, j], scatter_at[:, j]),
+                       torch.where(keep[:, j, None], ht, 0), accumulate=True)
+
+    act = _act(cfg)
+    h = act(torch.bmm(buf, experts["w_gate"])) * torch.bmm(buf, experts["w_up"])
+    out_e = torch.bmm(h, experts["w_down"])                    # (E, C, d)
+
+    y = torch.zeros_like(ht)
+    gather_at = torch.where(keep, pos_k, 0)
+    for j in range(k):
+        g_j = torch.where(keep[:, j, None],
+                          out_e[eids[:, j], gather_at[:, j]], 0)
+        y = y + g_j * gate_vals[:, j, None].to(g_j.dtype)
+
+    shared = p.get("shared")
+    if shared is not None:
+        y = y + (act(ht @ shared["gate"]["w"])
+                 * (ht @ shared["up"]["w"])) @ shared["down"]["w"]
+    return y, aux
+
+
+# ===========================================================================
+# Mamba (S6 selective scan)
+# ===========================================================================
+
+def mamba_init(cfg: ModelConfig, gen, device, lead=()) -> dict:
+    """A_log and D stay fp32 in a bf16 model, as in the reference."""
+    d, di, N, r, dt = (cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dtr,
+                       cfg.torch_dtype)
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+    return {
+        "norm": {"scale": _zeros(lead, d, cfg, device)},
+        "in_proj": _dense(gen, lead, d, 2 * di, cfg, device),
+        "conv1d": {"w": make_dense(gen, (*lead, cfg.d_conv, di), dt, device)},
+        "x_proj": {"w": make_dense(gen, (*lead, di, r + 2 * N), dt, device)},
+        "dt_proj": {"w": make_dense(gen, (*lead, r, di), dt, device),
+                    "bias": torch.full((*lead, di), -3.0, dtype=dt,
+                                       device=device)},
+        "A_log": torch.log(A).expand(*lead, di, N).contiguous(),
+        "D": torch.ones((*lead, di), dtype=torch.float32, device=device),
+        "out_proj": _dense(gen, lead, di, d, cfg, device),
+    }
+
+
+def _causal_conv(x, w):
+    """x (B, T, D), w (K, D): depthwise causal; the K shifted products are
+    summed in order from 0, each add rounded in x's dtype, as the
+    reference's ``sum`` does."""
+    K, T = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = xp[:, 0:T] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + T] * w[i]
+    return out
+
+
+def _softplus(t):
+    """``jax.nn.softplus`` = ``logaddexp(t, 0)`` = max(t, 0) +
+    log1p(exp(−|t|)), op by op (``F.softplus`` switches to the identity
+    above its threshold of 20)."""
+    return t.clamp_min(0) + torch.log1p(torch.exp(-t.abs()))
+
+
+def _mamba_dbc(cfg: ModelConfig, p, xs):
+    """dt (after the softplus, in the model dtype), B and C from xs."""
+    r, N = cfg.dtr, cfg.d_state
+    dt, Bc, Cc = (xs @ p["x_proj"]["w"]).split([r, N, N], dim=-1)
+    return (_softplus(dt @ p["dt_proj"]["w"] + p["dt_proj"]["bias"]), Bc, Cc)
+
+
+def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
+    h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    xs, z = (h @ p["in_proj"]["w"]).chunk(2, dim=-1)
+    xs = _silu(_causal_conv(xs, p["conv1d"]["w"]))
+    dt, Bc, Cc = _mamba_dbc(cfg, p, xs)
+    # the scan takes dt in the model dtype (the reference's forward);
+    # mamba_step keeps it in fp32
+    args = (xs, dt, -torch.exp(p["A_log"].float()), Bc.contiguous(),
+            Cc.contiguous(), p["D"])
+    # Every T takes one path: the plain loop holds only the (Dm, N) state
+    # (the reference chunks above ``chunk_threshold`` only to rematerialize
+    # each chunk for its backward pass)
+    if backend == "ref":
+        y, _ = R.selective_scan_ref(*args)
+    else:
+        y, _ = ops.ssm_scan(*args)
+    return x + (y * _silu(z)) @ p["out_proj"]["w"]
+
+
+def mamba_init_state(cfg: ModelConfig, batch: int, device, lead=()) -> dict:
+    di = cfg.d_inner
+    return {
+        "conv": torch.zeros((*lead, batch, cfg.d_conv - 1, di),
+                            dtype=cfg.torch_dtype, device=device),
+        "ssm": torch.zeros((*lead, batch, di, cfg.d_state),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba_step(cfg: ModelConfig, p, x, state):
+    """x (B, 1, d); ``state`` {conv (B, K−1, di) in the model dtype, ssm
+    (B, di, N) fp32}; returns (x, state).  A plain step with no kernel, dt
+    kept in fp32 (the forward hands the scan dt in the model dtype, so bf16
+    forward and decode differ by design).  The state is updated in place,
+    where the reference returns a new one."""
+    h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    xs, z = (h[:, 0] @ p["in_proj"]["w"]).chunk(2, dim=-1)
+    window = torch.cat([state["conv"], xs[:, None]], dim=1)   # (B, K, di)
+    xs = _silu(torch.einsum("bkd,kd->bd", window, p["conv1d"]["w"]))
+    dt, Bc, Cc = _mamba_dbc(cfg, p, xs)
+    dt, xf = dt.float(), xs.float()
+    A = -torch.exp(p["A_log"].float())
+    hnew = (torch.exp(dt[..., None] * A) * state["ssm"]
+            + (dt * xf)[..., None] * Bc.float()[:, None, :])
+    y = torch.einsum("bdn,bn->bd", hnew, Cc.float()) + xf * p["D"]
+    y = (y.to(x.dtype) * _silu(z))[:, None]
+    state["conv"].copy_(window[:, 1:])
+    state["ssm"].copy_(hnew)
+    return x + y @ p["out_proj"]["w"], state
 
 
 # ===========================================================================
@@ -213,13 +430,6 @@ def _time_mix_inputs(p, h, hprev):
     return r, k, v, g, torch.exp(-torch.exp(w_raw.float()))
 
 
-def _sigmoid(t):
-    """``1 / (1 + exp(-t))`` op by op in t's dtype: in bf16 this rounds
-    where the reference's ``jax.nn.sigmoid`` does (``torch.sigmoid`` rounds
-    once, and the bf16 logits then drift past the parity tolerance)."""
-    return 1 / (1 + torch.exp(-t))
-
-
 def _channel_mix(p, h2, h2prev):
     """The channel mix reuses ``mix[1]`` for k and ``mix[0]`` for r, as the
     reference does."""
@@ -250,7 +460,7 @@ def rwkv_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
         o, _ = R.rwkv6_ref(*args)
     else:
         o, _ = ops.rwkv6(*args)
-    o = o.transpose(1, 2).reshape(B, T, d) * (g * _sigmoid(g))
+    o = o.transpose(1, 2).reshape(B, T, d) * _silu(g)
     x = x + o @ p["out_proj"]["w"]
 
     h2 = rms_norm(x, p["cnorm"]["scale"], cfg.norm_eps)
@@ -289,7 +499,7 @@ def rwkv_step(cfg: ModelConfig, p, x, state):
     S = state["wkv"]
     o = torch.einsum("bhk,bhkv->bhv", rh, S + u[None, :, :, None] * kv)
     S.mul_(w.reshape(B, H, hd, 1)).add_(kv)
-    o = (o.reshape(B, d).to(x.dtype) * (g * _sigmoid(g)))[:, None]
+    o = (o.reshape(B, d).to(x.dtype) * _silu(g))[:, None]
     x = x + o @ p["out_proj"]["w"]
 
     h2 = rms_norm(x, p["cnorm"]["scale"], cfg.norm_eps)[:, 0]

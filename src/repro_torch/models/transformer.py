@@ -1,6 +1,6 @@
 """The decoder LM of the port: embed → periods → norm → logits
 (``repro.models.transformer``'s counterpart for layer patterns of attention
-blocks with a dense FFN and of RWKV-6 blocks; no MoE or Mamba yet).
+and Mamba blocks, each with a dense or an MoE FFN, and of RWKV-6 blocks).
 
 Parameters and decode states are nested dicts of tensors with the same
 keys and shapes as the reference's pytrees, stacked over the period axis,
@@ -23,11 +23,9 @@ __all__ = ["init_params", "forward", "init_decode_state", "decode_step"]
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     for spec in cfg.layer_pattern:
-        if spec.kind not in ("attn", "rwkv"):
+        if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} blocks are not ported yet")
-        if spec.moe:
-            raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models are not ported yet")
@@ -78,8 +76,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
 def _block_init(cfg: ModelConfig, spec, generator, device, lead) -> dict:
     if spec.kind == "rwkv":   # the RWKV block holds its own channel mix
         return {"core": B.rwkv_init(cfg, generator, device, lead)}
-    return {"core": B.attn_init(cfg, generator, device, lead),
-            "ffn": B.mlp_init(cfg, generator, device, lead)}
+    core = B.mamba_init if spec.kind == "mamba" else B.attn_init
+    ffn = B.moe_init if spec.moe else B.mlp_init
+    return {"core": core(cfg, generator, device, lead),
+            "ffn": ffn(cfg, generator, device, lead)}
 
 
 # ---------------------------------------------------------------------------
@@ -105,7 +105,7 @@ def _logits(params, x, cfg: ModelConfig):
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
             backend: str = "kernel"):
     """tokens (B, T) int.  Returns fp32 logits (B, T, V) and the MoE aux
-    loss (0 for the models ported so far)."""
+    loss summed over layers (a 0-d fp32 tensor, 0 without MoE layers)."""
     check_supported(cfg)
     _check_backend(backend)
     if prefix_embeds is not None:
@@ -115,16 +115,24 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
     Bsz, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(Bsz, T)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for per in range(cfg.n_periods):
         pp = _period(params["layers"], per)
         for i, spec in enumerate(cfg.layer_pattern):
             p = pp[f"pos{i}"]
             if spec.kind == "rwkv":   # time mix and channel mix in one
                 x = B.rwkv_fwd(cfg, p["core"], x, backend)
+                continue
+            if spec.kind == "mamba":
+                x = B.mamba_fwd(cfg, p["core"], x, backend)
             else:
                 x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
+            if spec.moe:
+                x, a = B.moe_fwd(cfg, p["ffn"], x)
+                aux = aux + a
+            else:
                 x = B.mlp_fwd(cfg, p["ffn"], x)
-    return _logits(params, x, cfg), 0.0
+    return _logits(params, x, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -133,23 +141,29 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda") -> dict:
-    """KV caches (attention) or recurrent states (RWKV) stacked over
+    """KV caches (attention) or recurrent states (Mamba, RWKV) stacked over
     periods.  Every cache holds ``max_len`` positions, a windowed layer's
-    too, as in the reference; an RWKV state does not depend on it."""
+    too, as in the reference; a recurrent state does not depend on it."""
     check_supported(cfg)
     device = check_device(device)
     lead = (cfg.n_periods,)
-    return {f"pos{i}": (B.rwkv_init_state(cfg, batch, device, lead)
-                        if spec.kind == "rwkv" else
-                        B.attn_init_state(cfg, batch, max_len, device, lead))
-            for i, spec in enumerate(cfg.layer_pattern)}
+
+    def one(spec):
+        if spec.kind == "attn":
+            return B.attn_init_state(cfg, batch, max_len, device, lead)
+        if spec.kind == "mamba":
+            return B.mamba_init_state(cfg, batch, device, lead)
+        return B.rwkv_init_state(cfg, batch, device, lead)
+
+    return {f"pos{i}": one(spec) for i, spec in enumerate(cfg.layer_pattern)}
 
 
 def decode_step(params, state, token, pos, cfg: ModelConfig,
                 backend: str = "kernel"):
     """token (B,) int; ``pos`` an int or a 0-d int32 tensor on the token's
     device.  Returns (logits (B, V) fp32, state); the state's caches and
-    recurrent states are updated in place."""
+    recurrent states are updated in place.  The MoE aux loss is dropped, as
+    in the reference."""
     check_supported(cfg)
     _check_backend(backend)
     if not isinstance(pos, torch.Tensor):
@@ -159,11 +173,16 @@ def decode_step(params, state, token, pos, cfg: ModelConfig,
         pp = _period(params["layers"], per)
         st = _period(state, per)
         for i, spec in enumerate(cfg.layer_pattern):
-            p = pp[f"pos{i}"]
+            p, s = pp[f"pos{i}"], st[f"pos{i}"]
             if spec.kind == "rwkv":
-                x, _ = B.rwkv_step(cfg, p["core"], x, st[f"pos{i}"])
+                x, _ = B.rwkv_step(cfg, p["core"], x, s)
+                continue
+            if spec.kind == "mamba":
+                x, _ = B.mamba_step(cfg, p["core"], x, s)
             else:
-                x, _ = B.attn_step(cfg, spec, p["core"], x, st[f"pos{i}"],
-                                   pos, backend)
+                x, _ = B.attn_step(cfg, spec, p["core"], x, s, pos, backend)
+            if spec.moe:
+                x, _ = B.moe_fwd(cfg, p["ffn"], x)
+            else:
                 x = B.mlp_fwd(cfg, p["ffn"], x)
     return _logits(params, x[:, 0], cfg), state

@@ -1,11 +1,12 @@
 """Batched serving example of the port: prefill + greedy decode with KV
 caches or recurrent states, the twin of ``examples/serve_lm.py``.  Serves
-the reduced (smoke) config of a decoder LM the port runs (the dense LMs or
-RWKV-6).
+the reduced (smoke) config of a decoder LM the port runs (the dense LMs,
+RWKV-6, the Jamba hybrid or the MoE LMs).
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm \
           --arch mistral_nemo_12b --batch 4 --new 24
-      (--arch rwkv6_7b for RWKV-6)
+      (--arch rwkv6_7b, jamba_1_5_large_398b, deepseek_moe_16b or
+       llama4_scout_17b_a16e for the others)
       (add --device cpu to run the plain path on the CPU)
 """
 

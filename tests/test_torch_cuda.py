@@ -6,7 +6,9 @@ the file imports only torch and repro_torch, so it runs where JAX is absent:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances as in tests/test_kernels.py: fp32 2e-4 (attention) and 1e-4
-(the RWKV-6 scan), bf16 3e-2."""
+(the RWKV-6 and Mamba scans), bf16 3e-2; the Mamba scan's bf16 y is
+rounded once from fp32 on both sides, so it is held to one bf16 ulp
+(2^-7 relative)."""
 
 import dataclasses
 
@@ -21,6 +23,7 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.rwkv6 import rwkv6_cuda
+from repro_torch.kernels.ssm_scan import STATE_DIMS, ssm_scan_cuda
 from repro_torch.models import transformer as TF
 from repro_torch.serve.engine import generate
 
@@ -160,11 +163,62 @@ def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(card):
         rwkv6_cuda(flat[1:].view(r.shape), k, v, w, u)
 
 
+def _ssm_inputs(gen, Bt, L, Dm, N, dtype, dev):
+    """x, dt, A, B, C, D as tests/test_kernels.py draws them (dt after a
+    softplus, A < 0); A and D fp32, as the Mamba block passes them."""
+    x = _rand(gen, (Bt, L, Dm), dtype, dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bt, L, Dm), generator=gen, device=dev) - 1.0).to(dtype)
+    A = -torch.exp(0.5 * torch.randn((Dm, N), generator=gen, device=dev))
+    B = _rand(gen, (Bt, L, N), dtype, dev)
+    C = _rand(gen, (Bt, L, N), dtype, dev)
+    D = torch.full((Dm,), 0.5, device=dev)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", STATE_DIMS)
+@pytest.mark.parametrize("Bt,L,Dm", [(1, 2048, 16384), (2, 77, 48),
+                                     (2, 1, 32), (2, 16, 32)])
+def test_ssm_scan_kernel_matches_plain(card, dtype, N, Bt, L, Dm):
+    gen = torch.Generator(card).manual_seed(7)
+    args = _ssm_inputs(gen, Bt, L, Dm, N, dtype, card)
+    before = ssm_scan_cuda.launches
+    y, h = ops.ssm_scan(*args)
+    assert ssm_scan_cuda.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_ref, h_ref = R.selective_scan_ref(*args)
+    _assert_close(y, y_ref, 1e-4 if dtype == torch.float32 else 2.0 ** -7)
+    _assert_close(h, h_ref, 1e-4)
+
+
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(card):
+    gen = torch.Generator(card).manual_seed(8)
+    x, dt, A, B, C, D = _ssm_inputs(gen, 1, 8, 32, 16, torch.float32, card)
+    with pytest.raises(ValueError, match="not built"):
+        ssm_scan_cuda(*_ssm_inputs(gen, 1, 8, 32, 32, torch.float32, card))
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert strided.shape == x.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        ssm_scan_cuda(strided, dt, A, B, C, D)
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        ssm_scan_cuda(x, dt.bfloat16(), A, B, C, D)
+    with pytest.raises(ValueError, match="float32"):
+        ssm_scan_cuda(x, dt, A.bfloat16(), B, C, D)
+    with pytest.raises(ValueError, match="not supported"):
+        ssm_scan_cuda(x.half(), dt.half(), A, B.half(), C.half(), D)
+    with pytest.raises(ValueError, match="C has shape"):
+        ssm_scan_cuda(x, dt, A, B, C[:, :4].contiguous(), D)
+
+
 @pytest.mark.parametrize("arch", PORTED_IDS)
 def test_model_kernel_path_matches_plain_path(card, arch):
     """fp32 smoke width: the kernels against the plain path, forward and
-    teacher-forced decode, and identical greedy tokens."""
-    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    teacher-forced decode, and identical greedy tokens.  Capacity factor
+    8.0, so that an MoE layer drops no token in the forward or a step
+    (their drops differ by design at the config's factor)."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32",
+                              capacity_factor=8.0)
     params = TF.init_params(cfg, torch.Generator(card).manual_seed(2), card)
     toks = torch.randint(0, cfg.vocab_size, (2, 20), device=card,
                          dtype=torch.int32,

@@ -1,5 +1,5 @@
-"""The port's attention and RWKV-6 recurrence (repro_torch.kernels) against
-the JAX reference (repro.kernels) on the CPU, with inputs made by numpy from
+"""The port's attention, selective scan and RWKV-6 recurrence
+(repro_torch.kernels) against the JAX reference (repro.kernels) on the CPU, with inputs made by numpy from
 a seed.  The CUDA kernels themselves are held against these plain versions
 by tests/test_torch_cuda.py and chip_smoke.py on the card.
 
@@ -16,12 +16,14 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.rwkv6 import rwkv6_pallas
+from repro.kernels.ssm_scan import ssm_scan_pallas
 from repro_torch.kernels import ops, autotile
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
 from repro_torch.kernels.rwkv6 import rwkv6_cuda
+from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
 F32_TOL = 2e-4
 SCAN_TOL = 1e-4
@@ -272,3 +274,103 @@ def test_rwkv6_cuda_rejects_cpu_and_meta_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.rwkv6(*meta)    # off the CPU, ops goes to the wrapper or raises
     assert rwkv6_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan (K3's plain version)
+# ---------------------------------------------------------------------------
+
+def _ssm_case(Bt, L, Dm, N, seed=0):
+    """tests/test_kernels.py's _ssm_case, drawn with numpy: dt after a
+    softplus, A < 0."""
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((Bt, L, Dm)).astype(np.float32)
+    dt = np.logaddexp(rs.standard_normal((Bt, L, Dm)) - 1.0, 0.0
+                      ).astype(np.float32)
+    A = (-np.exp(rs.standard_normal((Dm, N)) * 0.5)).astype(np.float32)
+    B = rs.standard_normal((Bt, L, N)).astype(np.float32)
+    C = rs.standard_normal((Bt, L, N)).astype(np.float32)
+    D = np.full((Dm,), 0.5, np.float32)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.parametrize("Bt,L,Dm,N,bd,bl", [(2, 32, 16, 8, 8, 16),
+                                             (1, 64, 8, 4, 8, 16),
+                                             (2, 16, 32, 16, 16, 8)])
+def test_selective_scan_ref_vs_pallas_interpret(Bt, L, Dm, N, bd, bl):
+    """tests/test_kernels.py:186-189's cases: the port's loop against the
+    Pallas kernel in interpret mode and the reference's associative scan."""
+    j, t = _both(_ssm_case(Bt, L, Dm, N, seed=7))
+    y, h = TR.selective_scan_ref(*t)
+    assert y.dtype == torch.float32 and h.shape == (Bt, Dm, N)
+    y_p, h_p = ssm_scan_pallas(*j, bd=bd, bl=bl, interpret=True)
+    y_r, h_r = JR.selective_scan_ref(*j)
+    for got, want in ((y, y_p), (h, h_p), (y, y_r), (h, h_r)):
+        _close(got, want, SCAN_TOL)
+
+
+def test_selective_scan_state_handoff():
+    """Two halves with the state handed over == the full sequence, in the
+    port and against the reference's ``h0`` path."""
+    j, t = _both(_ssm_case(2, 32, 16, 8, seed=2))
+    y_full, h_full = TR.selective_scan_ref(*t)
+    x, dt, A, B, C, D = t
+    _, h1 = TR.selective_scan_ref(x[:, :16], dt[:, :16], A, B[:, :16],
+                                  C[:, :16], D)
+    y2, h2 = TR.selective_scan_ref(x[:, 16:], dt[:, 16:], A, B[:, 16:],
+                                   C[:, 16:], D, h0=h1)
+    _close(y2, np.asarray(y_full[:, 16:]), SCAN_TOL)
+    _close(h2, np.asarray(h_full), SCAN_TOL)
+    jx, jdt, jA, jB, jC, jD = j
+    y2_j, h2_j = JR.selective_scan_ref(jx[:, 16:], jdt[:, 16:], jA,
+                                       jB[:, 16:], jC[:, 16:], jD,
+                                       h0=jnp.asarray(h1.numpy()))
+    _close(y2, y2_j, SCAN_TOL)
+    _close(h2, h2_j, SCAN_TOL)
+
+
+@pytest.mark.parametrize("L,chunk", [(32, 8), (48, 16), (16, 64)])
+def test_selective_scan_ref_matches_reference_chunked(L, chunk):
+    """The port's one loop over L gives what the reference's chunked scan
+    gives, so the port needs no chunked version."""
+    j, t = _both(_ssm_case(2, L, 16, 8, seed=3))
+    y, h = TR.selective_scan_ref(*t)
+    y_j, h_j = JR.chunked_selective_scan_ref(*j, chunk=chunk)
+    _close(y, y_j, SCAN_TOL)
+    _close(h, h_j, SCAN_TOL)
+
+
+def test_selective_scan_ref_bf16():
+    """bf16 x, dt, B, C (A and D fp32, as the Mamba block passes them): fp32
+    state and arithmetic, y rounded once to bf16, h_last fp32."""
+    x, dt, A, B, C, D = _ssm_case(1, 24, 32, 16, seed=4)
+    jb, tb = _both((x, dt, B, C), "bfloat16")
+    jf, tf = _both((A, D))
+    y, h = TR.selective_scan_ref(tb[0], tb[1], tf[0], tb[2], tb[3], tf[1])
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    y_j, h_j = JR.selective_scan_ref(jb[0], jb[1], jf[0], jb[2], jb[3], jf[1])
+    _close(y, y_j, BF16_TOL)
+    _close(h, h_j, SCAN_TOL)
+
+
+def test_ops_ssm_scan_cpu_never_reaches_the_cuda_wrapper(monkeypatch):
+    def boom(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA wrapper")
+
+    monkeypatch.setattr(ops, "ssm_scan_cuda", boom)
+    j, t = _both(_ssm_case(2, 20, 24, 16, seed=5))   # no multiple of a tile
+    y, h = ops.ssm_scan(*t)
+    y_j, h_j = jops.ssm_scan(*j, backend="ref")
+    _close(y, y_j, SCAN_TOL)
+    _close(h, h_j, SCAN_TOL)
+
+
+def test_ssm_scan_cuda_rejects_cpu_and_meta_tensors():
+    _, t = _both(_ssm_case(1, 16, 32, 16))
+    before = ssm_scan_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssm_scan_cuda(*t)
+    meta = [x.to("meta") for x in t]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssm_scan(*meta)    # off the CPU, ops goes to the wrapper or raises
+    assert ssm_scan_cuda.launches == before
