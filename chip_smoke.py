@@ -7,10 +7,13 @@ Phases, each of which stops the run with a non-zero exit on failure:
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one process
    per source, all at once) and prints the build time, registers and
    spills;
-3. each CUDA kernel against its plain PyTorch version on the card: flash
-   attention over GQA / window / softcap / ragged / dtype / head_dim cases,
-   the RWKV-6 recurrence over dtype / head size / (B, H) / ragged T, the
-   Mamba selective scan over dtype / state size / (Bt, L, Dm);
+3. each CUDA kernel against its plain PyTorch version on the card: the
+   GEMM over the reference's shapes, ragged, decode-shaped (M = 1, 7),
+   unaligned and one large product, in both dtypes; flash attention over
+   GQA / window / softcap / ragged / dtype / head_dim cases (head_dim 96
+   causal, non-causal over 1500 keys, and in decode); the RWKV-6 recurrence
+   over dtype / head size / (B, H) / ragged T; the Mamba selective scan over
+   dtype / state size / (Bt, L, Dm);
 4. the main paths, in bf16 with random weights from a seeded generator, the
    kernels' launch counters reset before and read after each run:
    a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
@@ -22,16 +25,26 @@ Phases, each of which stops the run with a non-zero exit on failure:
       period (a whole period does not fit the card) — the same two runs
       (``forward`` through the scan kernel once per Mamba layer and the
       attention kernel once; ``generate`` through the plain Mamba step);
-5. fp32 consistency at Mistral-NeMo and RWKV-6 width (depth 2) and at
-   Jamba width (Mamba, Mamba + MoE and attention layers, capacity factor
-   8.0): teacher-forced ``decode_step`` against ``forward``, and
-   ``forward`` through the kernels against the plain path on the card;
+   d. Whisper-base at full width and depth — ``forward_encdec`` over 4 x
+      1500 frames and 128 tokens, ``encode``, and a teacher-forced + greedy
+      loop (batch 4, prompt 16, 24 new) through ``build_serve_step``;
+   e. Phi-3-vision 4.2B at full width and depth — ``forward`` on a
+      576-patch prefix + 1472 tokens and ``generate`` (batch 4, 16 + 24);
+   f. ``ops.gemm``, K1's entry point (no model path runs it, as in the
+      reference): the micro-bench's 512^3 fp32 product and Mistral-NeMo's
+      up-projection at T = 2048 in bf16;
+5. fp32 consistency at Mistral-NeMo and RWKV-6 width (depth 2), at Jamba
+   width (Mamba, Mamba + MoE and attention layers, capacity factor 8.0),
+   at Whisper-base's full width and at Phi-3-vision's width (depth 2, with
+   the prefix): teacher-forced decode steps against the forward, and the
+   forward through the kernels against the plain path on the card;
 6. Gemma-2 smoke width (window, softcap, post-norms, tied head) and Jamba
    smoke width in fp32 at its own capacity factor (MoE drops in decode)
    through ``generate``, kernels against the plain path;
 7. each kernel timed with CUDA events at the main paths' shapes beside its
    bound, its plain version and, where there is one, one PyTorch library
-   call (a yardstick the port never calls).
+   call (a yardstick the port never calls); K1 also at 512^3 fp32, K2
+   prefill also at Whisper's encoder and Phi-3-vision's shapes.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -54,6 +67,9 @@ PEAK_F32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 F32_TOL, BF16_TOL = 2e-4, 3e-2
 SCAN_TOL = 1e-4             # tests/test_kernels.py's fp32 tolerance for scans
+GEMM_F32_TOL, GEMM_BF16_TOL = 1e-5, 2e-2   # ... and for the GEMM
+GEMM = dict(source="src/repro_torch/csrc/gemm.cu",
+            replaces="src/repro/kernels/gemm.py:26")
 FLASH = dict(source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:34")
 RWKV = dict(source="src/repro_torch/csrc/rwkv6.cu",
@@ -82,6 +98,25 @@ def check_close(name, got, want, tol) -> float:
     log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
     if excess > tol:
         fail(f"{name}: outside tolerance {tol}")
+    return err
+
+
+def check_scaled(name, got, want, tol) -> float:
+    """max |got - want| <= tol * max(1, max |want|): an fp32 product of K
+    terms summed in another order than cuBLAS's differs near zero by far
+    more than tol, so the tolerance is relative to the output's scale.
+    Returns the max abs error."""
+    import torch
+    if not torch.isfinite(got.float()).all():
+        fail(f"{name}: non-finite output")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {tuple(got.shape)} {got.dtype}, want "
+             f"{tuple(want.shape)} {want.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = max(1.0, want.float().abs().max().item())
+    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g} x scale {scale:.3g})")
+    if err > tol * scale:
+        fail(f"{name}: outside tolerance {tol} x {scale:.3g}")
     return err
 
 
@@ -118,6 +153,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                      decode_attention_cuda,
                                                      flash_attention_cuda)
+    from repro_torch.kernels.gemm import gemm_cuda
     from repro_torch.kernels.rwkv6 import HEAD_DIMS as RWKV_HEAD_DIMS
     from repro_torch.kernels.rwkv6 import rwkv6_cuda
     from repro_torch.kernels.ssm_scan import STATE_DIMS, ssm_scan_cuda
@@ -183,9 +219,28 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     log("phase 3 kernels vs plain")
     t0 = time.perf_counter()
+    # K1: (M, K, N); fp32 within 1e-5 of the output's scale, bf16 2e-2
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for M, K, N in ((32, 64, 32), (64, 32, 48), (16, 16, 128),
+                        (33, 70, 45), (1, 5120, 5120), (7, 5120, 5120),
+                        (100, 77, 123), (257, 1001, 250),
+                        (2048, 5120, 14336)):
+            x, w = rand(M, K, dtype=dtype), rand(K, N, dtype=dtype)
+            t = autotile.gemm_tiles(M, N, K, x.element_size())
+            name = (f"gemm {tag} ({M}x{K})@({K}x{N}) tiles=({t.bm},{t.bn},"
+                    f"{t.bk})")
+            got, want = ops.gemm(x, w), R.gemm_ref(x, w)
+            if dtype == torch.float32:
+                check_scaled(name, got, want, GEMM_F32_TOL)
+            else:
+                check_close(name, got, want, GEMM_BF16_TOL)
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         cases = [((32, 8, 128), 384, 384, True, None, None, 0),
+                 ((32, 32, 96), 2048, 2048, True, None, None, 0),
+                 ((8, 8, 96), 333, 1500, False, None, None, 0),
+                 ((8, 8, 64), 1, 1500, False, None, None, 0),
                  ((16, 8, 256), 384, 384, True, None, None, 0),
                  ((4, 1, 128), 384, 384, True, None, None, 0)]
         for window in (None, 16, 4096):
@@ -224,7 +279,7 @@ def main() -> int:
                         decode_attention_cuda(q1, k, v, pos, window=40),
                         R.decode_attention_ref(q1, k, v, window=40, pos=97),
                         tol)
-        for (Hq, Hkv, D) in ((32, 8, 128), (16, 8, 256)):
+        for (Hq, Hkv, D) in ((32, 8, 128), (16, 8, 256), (32, 32, 96)):
             S = 4096
             q = rand(4, Hq, 1, D, dtype=dtype)
             k, v = rand(4, Hkv, S, D, dtype=dtype), rand(4, Hkv, S, D,
@@ -270,15 +325,15 @@ def main() -> int:
 
     # ---- 4. main paths at full width and depth, bf16 ----------------------
     counters = (flash_attention_cuda, decode_attention_cuda, rwkv6_cuda,
-                ssm_scan_cuda)
+                ssm_scan_cuda, gemm_cuda)
 
     def reset():
         for c in counters:
             c.launches = 0
 
     def launches():
-        """(flash prefill, flash decode, rwkv6, ssm_scan) launches since
-        reset()."""
+        """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
+        since reset()."""
         return tuple(c.launches for c in counters)
 
     # a. Mistral-NeMo-12B: K2 prefill once per layer in forward, K2 decode
@@ -290,8 +345,8 @@ def main() -> int:
         f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} depth {L} of {L} (no cut) "
         f"dtype={cfg.dtype}")
     fwd_launches, gen_launches = _serve(
-        cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0, 0),
-        want_gen=lambda steps: (0, L * steps, 0, 0))
+        cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0, 0, 0),
+        want_gen=lambda steps: (0, L * steps, 0, 0, 0))
 
     # b. RWKV-6 7B: K4 once per layer in forward; generate runs the plain
     #    recurrence step (as the reference does) and launches no kernel
@@ -303,8 +358,8 @@ def main() -> int:
         f"vocab={rcfg.vocab_size} depth {RL} of {RL} (no cut) "
         f"dtype={rcfg.dtype}")
     rwkv_fwd_launches, _ = _serve(
-        rcfg, 3, dev, gen, reset, launches, want_fwd=(0, 0, RL, 0),
-        want_gen=lambda steps: (0, 0, 0, 0))
+        rcfg, 3, dev, gen, reset, launches, want_fwd=(0, 0, RL, 0, 0),
+        want_gen=lambda steps: (0, 0, 0, 0, 0))
 
     # c. Jamba-1.5-Large: K3 once per Mamba layer and K2 prefill once in
     #    forward; generate runs the plain Mamba step (as the reference does)
@@ -329,19 +384,71 @@ def main() -> int:
         "the card holds; the first 7 layers keep every layer kind (Mamba, "
         "Mamba + MoE, attention) at full width")
     jamba_fwd_launches, _ = _serve(
-        jcfg, 5, dev, gen, reset, launches, want_fwd=(n_attn, 0, 0, n_mamba),
-        want_gen=lambda steps: (0, n_attn * steps, 0, 0))
+        jcfg, 5, dev, gen, reset, launches,
+        want_fwd=(n_attn, 0, 0, n_mamba, 0),
+        want_gen=lambda steps: (0, n_attn * steps, 0, 0, 0))
+
+    # d. Whisper-base: K2 prefill in every attention of forward_encdec (6
+    #    encoder, 6 decoder, 6 cross); per serve step K2 decode in each
+    #    decoder self-attention and K2 prefill in each cross-attention
+    wcfg = get_config("whisper_base")
+    log(f"phase 4d main path: {wcfg.name} encoder {wcfg.n_enc_layers} + "
+        f"decoder {wcfg.n_layers} layers (no cut) d_model={wcfg.d_model} "
+        f"heads=({wcfg.n_heads},{wcfg.n_kv_heads})x{wcfg.hd} "
+        f"d_ff={wcfg.d_ff} vocab={wcfg.vocab_size} frames="
+        f"{wcfg.enc_seq_len} dtype={wcfg.dtype}")
+    _whisper(wcfg, 10, dev, gen, reset, launches)
+
+    # e. Phi-3-vision 4.2B: K2 prefill once per layer over prefix + tokens,
+    #    K2 decode once per layer and step in generate (no prefix, as in the
+    #    reference)
+    pcfg = get_config("phi_3_vision_4_2b")
+    PL = pcfg.n_layers
+    log(f"phase 4e main path: {pcfg.name} d_model={pcfg.d_model} "
+        f"heads=({pcfg.n_heads},{pcfg.n_kv_heads})x{pcfg.hd} "
+        f"d_ff={pcfg.d_ff} vocab={pcfg.vocab_size} prefix={pcfg.prefix_len} "
+        f"depth {PL} of {PL} (no cut) dtype={pcfg.dtype}")
+    phi_fwd_launches, _ = _serve(
+        pcfg, 11, dev, gen, reset, launches, want_fwd=(PL, 0, 0, 0, 0),
+        want_gen=lambda steps: (0, PL * steps, 0, 0, 0),
+        prefix=pcfg.prefix_len)
+
+    # f. K1's path, ops.gemm: the micro-bench's product
+    #    (benchmarks/run.py:435-449) and Mistral-NeMo's up-projection at
+    #    T = 2048; no model path launches K1 (the projections are plain
+    #    products, as the reference's are XLA dots)
+    log("phase 4f K1 path: ops.gemm (each model path above launched K1 "
+        "0 times, as its checked counts show)")
+    gemm_path = ((512, 512, 512, torch.float32),
+                 (2048, cfg.d_model, cfg.d_ff, torch.bfloat16))
+    operands = [(rand(M, K, dtype=dt), rand(K, N, dtype=dt))
+                for M, K, N, dt in gemm_path]
+    reset()
+    outs = [ops.gemm(x, w) for x, w in operands]
+    torch.cuda.synchronize()
+    gemm_launches = launches()
+    if gemm_launches != (0, 0, 0, 0, len(gemm_path)):
+        fail(f"ops.gemm launches {gemm_launches}, want "
+             f"{(0, 0, 0, 0, len(gemm_path))}")
+    for (x, w), out in zip(operands, outs):
+        name = (f"ops.gemm ({x.shape[0]}x{x.shape[1]})@({w.shape[0]}x"
+                f"{w.shape[1]}) {str(x.dtype)[6:]}")
+        if x.dtype == torch.float32:
+            check_scaled(name, out, R.gemm_ref(x, w), GEMM_F32_TOL)
+        else:
+            check_close(name, out, R.gemm_ref(x, w), GEMM_BF16_TOL)
+    del operands, outs
 
     # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
     log("phase 5 fp32 consistency (tol 1e-3: cuBLAS sums in another order "
         "for the 128-row forward than for the 2-row decode step, and the "
         "kernels than the plain versions)")
     _consistency(dataclasses.replace(cfg, n_periods=2, dtype="float32"), 1,
-                 dev, gen, reset, launches, want_fwd=(2, 0, 0, 0))
+                 dev, gen, reset, launches, want_fwd=(2, 0, 0, 0, 0))
     log("  (the RWKV decode step keeps w in fp32, as the forward does in "
         "fp32)")
     _consistency(dataclasses.replace(rcfg, n_periods=2, dtype="float32"), 4,
-                 dev, gen, reset, launches, want_fwd=(0, 0, 2, 0))
+                 dev, gen, reset, launches, want_fwd=(0, 0, 2, 0, 0))
     pat = full.layer_pattern
     log("  (Jamba: layers 0, 1 and 4 — Mamba, Mamba + MoE, attention — at "
         "capacity factor 8.0, so neither the forward nor a decode step "
@@ -351,7 +458,31 @@ def main() -> int:
                                                           pat[4]),
                                      n_periods=1, dtype="float32",
                                      capacity_factor=8.0), 6,
-                 dev, gen, reset, launches, want_fwd=(1, 0, 0, 2))
+                 dev, gen, reset, launches, want_fwd=(1, 0, 0, 2, 0))
+    log("  (Whisper-base at full width and depth: forward_encdec over 2 x "
+        "1500 frames, kernels vs plain, and 64 teacher-forced serve steps "
+        "vs forward_encdec)")
+    _whisper_consistency(dataclasses.replace(wcfg, dtype="float32"), 12, dev,
+                         gen, reset, launches)
+    log("  (Phi-3-vision at depth 2 with its 576-patch prefix: forward "
+        "kernels vs plain)")
+    p2 = dataclasses.replace(pcfg, n_periods=2, dtype="float32")
+    params = TF.init_params(p2, torch.Generator(dev).manual_seed(13), dev)
+    with torch.inference_mode():
+        toks = torch.randint(0, p2.vocab_size, (2, 64), generator=gen,
+                             device=dev, dtype=torch.int32)
+        prefix = rand(2, p2.prefix_len, p2.d_model, dtype=torch.float32)
+        reset()
+        lk, _ = TF.forward(params, toks, p2, prefix_embeds=prefix)
+        if launches() != (2, 0, 0, 0, 0):
+            fail(f"{p2.name} fp32 forward launches {launches()}, want "
+                 "(2, 0, 0, 0, 0)")
+        lr, _ = TF.forward(params, toks, p2, prefix_embeds=prefix,
+                           backend="ref")
+        check_close(f"{p2.name} depth 2 prefix {p2.prefix_len} + 64 forward "
+                    "kernel vs plain", lk, lr, 1e-3)
+    del params, lk, lr
+    torch.cuda.empty_cache()
 
     # ---- 6. gemma2_9b smoke width through generate --------------------------
     cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
@@ -393,7 +524,7 @@ def main() -> int:
         seq = got[:, :-1]
         want4 = tuple(cfg4.n_periods * sum(s.kind == kind
                                            for s in cfg4.layer_pattern)
-                      for kind in ("attn", "", "", "mamba"))
+                      for kind in ("attn", "", "", "mamba", ""))
         reset()
         lk, aux_k = TF.forward(params4, seq, cfg4)
         if launches() != want4:
@@ -404,9 +535,35 @@ def main() -> int:
     del params4
 
     # ---- 7. timings at the main paths' shapes -----------------------------
-    log("phase 7 timings (CUDA events; bf16)")
+    log("phase 7 timings (CUDA events; bf16 unless marked)")
     bf = torch.bfloat16
     kernels = []
+    # K1 at the micro-bench's 512^3 in fp32 (logged) and at Mistral-NeMo's
+    # up-projection at T = 2048 in bf16 (the row); 2MNK flops, each operand
+    # read and the product written once; the library call is torch.matmul
+    # (cuBLAS, TF32 off)
+    for (M, K, N, dt), keep in zip(gemm_path, (False, True)):
+        x, w = rand(M, K, dtype=dt), rand(K, N, dtype=dt)
+        t = autotile.gemm_tiles(M, N, K, x.element_size())
+        kern = lambda: gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk)
+        plain = lambda: R.gemm_ref(x, w)
+        lib = lambda: torch.matmul(x, w)
+        if dt == torch.float32:
+            err = check_scaled("gemm fp32 at the micro-bench's shape", kern(),
+                               plain(), GEMM_F32_TOL)
+        else:
+            err = check_close("gemm at Mistral-NeMo's up-projection shape",
+                              kern(), plain(), GEMM_BF16_TOL)
+        b_ms, b_by = bound(2 * M * N * K, x.element_size() * (M * K + K * N
+                                                             + M * N),
+                           PEAK_F32_FLOPS if dt == torch.float32
+                           else PEAK_BF16_FLOPS)
+        row = _row("gemm", gemm_launches[4], err, kern, plain, lib, b_ms,
+                   b_by, f"({M}x{K})@({K}x{N}) {str(dt)[6:]} tiles=({t.bm},"
+                   f"{t.bn},{t.bk})", **GEMM)
+        if keep:
+            kernels.append(row)
+        del x, w
     T, Hq, Hkv, D = 2048, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = (rand(1, Hq, T, D, dtype=bf), rand(1, Hkv, T, D, dtype=bf),
                rand(1, Hkv, T, D, dtype=bf))
@@ -423,6 +580,26 @@ def main() -> int:
                         kern, plain, lib, b_ms, b_by,
                         f"B=1 Hq={Hq} Hkv={Hkv} T={T} D={D} causal "
                         f"tiles=({bq},{bk})", **FLASH))
+    # K2 prefill also at Whisper's encoder shape (non-causal over the 1500
+    # frames) and at Phi-3-vision's (head_dim 96, causal), logged
+    for Bp, Hp, Tp, Dp, causal, tag in (
+            (4, wcfg.n_heads, wcfg.enc_seq_len, wcfg.hd, False,
+             "Whisper encoder"),
+            (1, pcfg.n_heads, 2048, pcfg.hd, True, "Phi-3-vision")):
+        q, k, v = (rand(Bp, Hp, Tp, Dp, dtype=bf) for _ in range(3))
+        bq, bk = autotile.attention_tiles(Tp, Tp, Dp)
+        kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk,
+                                            causal=causal)
+        plain = lambda: R.attention_ref(q, k, v, causal=causal)
+        err = check_close(f"prefill at the {tag} shape", kern(), plain(),
+                          BF16_TOL)
+        pairs = Tp * (Tp + 1) / 2 if causal else Tp * Tp
+        b_ms, b_by = bound(4 * Bp * Hp * Dp * pairs, 2 * 4 * q.numel(),
+                           PEAK_BF16_FLOPS)
+        _row("flash_attention_prefill", None, err, kern, plain,
+             _sdpa(q, k, v, causal=causal), b_ms, b_by,
+             f"{tag}: B={Bp} H={Hp} T={Tp} D={Dp} causal={causal} "
+             f"tiles=({bq},{bk})", **FLASH)
     S, Bd = 4096, 4
     q = rand(Bd, Hq, 1, D, dtype=bf)
     k, v = rand(Bd, Hkv, S, D, dtype=bf), rand(Bd, Hkv, S, D, dtype=bf)
@@ -510,12 +687,14 @@ def main() -> int:
     return 0
 
 
-def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
+def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
+           prefix=0):
     """One main path: ``cfg`` at full width with random weights from
-    ``seed``, ``forward`` on a 2048-token prompt and ``generate`` (batch 4,
-    prompt 16, 24 new), each between ``reset()`` and ``launches()``, which
-    must read ``want_fwd`` and ``want_gen(decode steps)``.  Returns the two
-    launch counts; frees the weights."""
+    ``seed``, ``forward`` on 2048 positions (``prefix`` random patch
+    embeddings, then tokens) and ``generate`` (batch 4, prompt 16, 24 new),
+    each between ``reset()`` and ``launches()``, which must read
+    ``want_fwd`` and ``want_gen(decode steps)``.  Returns the two launch
+    counts; frees the weights."""
     import torch
 
     from repro_torch.models import transformer as TF
@@ -531,25 +710,30 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
         f"{time.perf_counter() - t0:.1f}s")
     with torch.inference_mode():
         T = 2048
-        prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=gen,
-                               device=dev, dtype=torch.int32)
-        TF.forward(params, prompt[:, :128], cfg)   # warm-up (cuBLAS etc.)
+        prompt = torch.randint(0, cfg.vocab_size, (1, T - prefix),
+                               generator=gen, device=dev, dtype=torch.int32)
+        pre = (torch.randn((1, prefix, cfg.d_model), generator=gen,
+                           device=dev).to(cfg.torch_dtype) if prefix
+               else None)
+        TF.forward(params, prompt[:, :128], cfg,   # warm-up (cuBLAS etc.)
+                   prefix_embeds=pre)
         torch.cuda.synchronize()
         reset()
         t0 = time.perf_counter()
-        logits, _ = TF.forward(params, prompt, cfg)
+        logits, _ = TF.forward(params, prompt, cfg, prefix_embeds=pre)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3
         fwd_launches = launches()
         if fwd_launches != want_fwd:
             fail(f"{cfg.name} forward launches (flash prefill, flash decode, "
-                 f"rwkv6, ssm_scan) = {fwd_launches}, want {want_fwd}")
+                 f"rwkv6, ssm_scan, gemm) = {fwd_launches}, want {want_fwd}")
         if logits.shape != (1, T, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
             fail(f"{cfg.name} forward logits: wrong shape or non-finite")
         del logits
         mm_flops = _weight_flops(cfg, T)
-        log(f"  forward B=1 T={T}: {fwd_ms:.1f} ms ({T / fwd_ms * 1e3:.0f} "
+        log(f"  forward B=1 T={T} (prefix {prefix}): {fwd_ms:.1f} ms "
+            f"({T / fwd_ms * 1e3:.0f} "
             f"prompt tok/s), logits finite, launches {fwd_launches}; weight "
             f"products {mm_flops / 1e12:.2f} TFLOP, bound "
             f"{mm_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
@@ -568,7 +752,7 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
         gen_launches = launches()
         if gen_launches != want_gen(steps):
             fail(f"{cfg.name} generate launches (flash prefill, flash "
-                 f"decode, rwkv6, ssm_scan) = {gen_launches}, want "
+                 f"decode, rwkv6, ssm_scan, gemm) = {gen_launches}, want "
                  f"{want_gen(steps)}")
         if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp], prompts) \
                 or out.min() < 0 or out.max() >= cfg.vocab_size:
@@ -583,6 +767,151 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen):
     del params
     torch.cuda.empty_cache()
     return fwd_launches, gen_launches
+
+
+def _encdec_generate(step, params, state, prompts, enc_out, new: int):
+    """Greedy decoding of an encoder-decoder model through its serve step:
+    the prompt teacher-forced, then ``new`` tokens; ``pos`` lives on the
+    device.  Returns (B, Tp + new) int32 tokens."""
+    import torch
+
+    pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
+    logits = None
+    for t in range(prompts.shape[1]):
+        logits, state = step(params, state, prompts[:, t], pos, enc_out)
+        pos += 1
+    out = [prompts]
+    tok = logits.argmax(-1).to(torch.int32)
+    for i in range(new):
+        out.append(tok[:, None])
+        if i == new - 1:
+            break
+        logits, state = step(params, state, tok, pos, enc_out)
+        pos += 1
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
+    """Whisper at full width: ``forward_encdec`` (batch 4, all frames, 128
+    tokens), ``encode``, and greedy decoding through ``build_serve_step``
+    (batch 4, prompt 16, 24 new), each between ``reset()`` and
+    ``launches()``."""
+    import torch
+
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve.engine import build_serve_step
+
+    torch.cuda.reset_peak_memory_stats()
+    params = ED.init_params_encdec(cfg, torch.Generator(dev).manual_seed(seed),
+                                   dev)
+    leaves = list(_leaves(params))
+    log(f"  init: {sum(t.numel() for t in leaves) / 1e6:.2f}M parameters "
+        f"counted from the tree's leaves (ModelConfig.n_params(), which "
+        f"leaves out the encoder, says {cfg.n_params() / 1e6:.2f}M), "
+        f"{sum(t.numel() * t.element_size() for t in leaves) / 2**20:.1f} "
+        "MiB")
+    L = cfg.n_layers
+    B, Te, Td = 4, cfg.enc_seq_len, 128
+    with torch.inference_mode():
+        frames = torch.randn((B, Te, cfg.d_model), generator=gen,
+                             device=dev).to(cfg.torch_dtype)
+        toks = torch.randint(0, cfg.vocab_size, (B, Td), generator=gen,
+                             device=dev, dtype=torch.int32)
+        ED.forward_encdec(params, toks, frames, cfg)   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits = ED.forward_encdec(params, toks, frames, cfg)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        want = (cfg.n_enc_layers + 2 * L, 0, 0, 0, 0)
+        if launches() != want:
+            fail(f"{cfg.name} forward_encdec launches {launches()}, want "
+                 f"{want}")
+        if logits.shape != (B, Td, cfg.vocab_size) or \
+                not torch.isfinite(logits).all():
+            fail(f"{cfg.name} forward_encdec logits: wrong shape or "
+                 "non-finite")
+        del logits
+        log(f"  forward_encdec B={B} frames={Te} tokens={Td}: {fwd_ms:.1f} "
+            f"ms, logits finite, launches {want}")
+        reset()
+        t0 = time.perf_counter()
+        enc_out = ED.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        if launches() != (cfg.n_enc_layers, 0, 0, 0, 0):
+            fail(f"{cfg.name} encode launches {launches()}")
+        step = build_serve_step(cfg)
+        Tp, new = 16, 24
+        prompts = toks[:, :Tp]
+        _encdec_generate(step, params, ED.init_decode_state_encdec(
+            cfg, B, Tp + 2, device=dev), prompts, enc_out, 2)   # warm-up
+        torch.cuda.synchronize()
+        state = ED.init_decode_state_encdec(cfg, B, Tp + new, device=dev)
+        reset()
+        t0 = time.perf_counter()
+        out = _encdec_generate(step, params, state, prompts, enc_out, new)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        steps = Tp + new - 1
+        if launches() != (L * steps, L * steps, 0, 0, 0):
+            fail(f"{cfg.name} serve-step launches {launches()}, want "
+                 f"{(L * steps, L * steps, 0, 0, 0)}")
+        if out.shape != (B, Tp + new) or not torch.equal(out[:, :Tp],
+                                                        prompts) \
+                or out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"{cfg.name} decoding: wrong shape, prompt not kept or "
+                 "token out of range")
+        log(f"  encode B={B} frames={Te}: {enc_ms:.1f} ms; serve steps "
+            f"B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
+            f"{gen_s * 1e3 / steps:.2f} ms per step ({steps} steps), "
+            f"{B * new / gen_s:.1f} tok/s, launches {launches()}")
+        log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            "GiB")
+    del params, enc_out, state
+    torch.cuda.empty_cache()
+
+
+def _whisper_consistency(cfg, seed, dev, gen, reset, launches) -> None:
+    """fp32 Whisper: ``forward_encdec`` through the kernels against the
+    plain path, and 64 teacher-forced serve steps against it, within
+    1e-3."""
+    import torch
+
+    from repro_torch.models import encdec as ED
+    from repro_torch.serve.engine import build_serve_step
+
+    tol = 1e-3
+    params = ED.init_params_encdec(cfg, torch.Generator(dev).manual_seed(seed),
+                                   dev)
+    with torch.inference_mode():
+        frames = torch.randn((2, cfg.enc_seq_len, cfg.d_model), generator=gen,
+                             device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                             device=dev, dtype=torch.int32)
+        reset()
+        lk = ED.forward_encdec(params, toks, frames, cfg)
+        want = (cfg.n_enc_layers + 2 * cfg.n_layers, 0, 0, 0, 0)
+        if launches() != want:
+            fail(f"{cfg.name} fp32 forward_encdec launches {launches()}, "
+                 f"want {want}")
+        lr = ED.forward_encdec(params, toks, frames, cfg, backend="ref")
+        check_close(f"{cfg.name} forward_encdec kernel vs plain", lk, lr, tol)
+        enc_out = ED.encode(params, frames, cfg)
+        step = build_serve_step(cfg)
+        state = ED.init_decode_state_encdec(cfg, 2, 64, device=dev)
+        pos = torch.zeros((), dtype=torch.int32, device=dev)
+        steps = []
+        for t in range(64):
+            lt, state = step(params, state, toks[:, t], pos, enc_out)
+            pos += 1
+            steps.append(lt)
+        check_close(f"{cfg.name} serve steps vs forward_encdec",
+                    torch.stack(steps, 1), lk, tol)
+    del params, state, enc_out
+    torch.cuda.empty_cache()
 
 
 def _weight_flops(cfg, n_tok: int) -> float:
@@ -675,8 +1004,9 @@ def _sdpa(q, k, v, causal):
 
 def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape, *,
          source, replaces, no_library=None):
-    """One entry of the ``kernels`` line; ``lib`` is None (with the reason
-    in ``no_library``) where no PyTorch call computes the same function."""
+    """One entry of the ``kernels`` line (logged too); ``lib`` is None
+    (with the reason in ``no_library``) where no PyTorch call computes the
+    same function."""
     ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
     lib_ms = time_ms(lib) if lib is not None else None
     lib_txt = (f"{lib_ms:.4f} ms" if lib_ms is not None

@@ -1,8 +1,9 @@
 """Architecture registry of the PyTorch port: the same ids and aliases as
-``repro.configs``, with ``full()`` / ``smoke()`` copies for the decoder LMs
-the port runs so far: the dense LMs, RWKV-6, the Jamba hybrid (Mamba +
-attention + MoE) and the two MoE LMs.  ``get_config`` raises for the
-others (the encoder-decoder and the vision-prefix models)."""
+``repro.configs``, with ``full()`` / ``smoke()`` copies of every config:
+the dense LMs, RWKV-6, the Jamba hybrid (Mamba + attention + MoE), the two
+MoE LMs, the vision-prefix LM (Phi-3-vision, served by
+``models/transformer.py`` with ``prefix_embeds``) and the encoder-decoder
+(Whisper, served by ``models/encdec.py``)."""
 
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ ARCH_IDS = [
 # ids whose config module and model blocks exist in the port
 PORTED_IDS = ["mistral_nemo_12b", "gemma_7b", "glm4_9b", "gemma2_9b",
               "rwkv6_7b", "jamba_1_5_large_398b", "deepseek_moe_16b",
-              "llama4_scout_17b_a16e"]
+              "llama4_scout_17b_a16e", "phi_3_vision_4_2b", "whisper_base"]
 
 # CLI aliases (--arch uses dashed ids)
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}

@@ -6,7 +6,8 @@ pytree over as NumPy arrays.  The port keeps the reference's layout, so the
 conversion is leaf by leaf: the same nested keys, ``(d_in, d_out)`` weights
 used as ``x @ w``, the fused ``wkv`` with k in its first half and v in its
 second.  Every leaf is checked against the shapes and dtypes the port's
-``init_params`` makes for ``cfg``.
+``init_params`` (``init_params_encdec`` for an encoder-decoder ``cfg``)
+makes for ``cfg``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import encdec as ED
 from .models import transformer as TF
 from .models.common import ModelConfig
 
@@ -28,8 +30,11 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(tree, cfg: ModelConfig, device="cuda") -> dict:
     """``tree``: the nested dict of ``repro.models.transformer.init_params``
-    with NumPy (or array-like) leaves.  Returns the port's parameters."""
-    want = TF.init_params(cfg, device="meta")
+    (``repro.models.encdec.init_params_encdec`` for an encoder-decoder
+    ``cfg``) with NumPy (or array-like) leaves.  Returns the port's
+    parameters."""
+    init = ED.init_params_encdec if cfg.is_encoder_decoder else TF.init_params
+    want = init(cfg, device="meta")
 
     def conv(src, ref, path):
         if isinstance(ref, dict):

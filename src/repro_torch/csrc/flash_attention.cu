@@ -28,10 +28,10 @@
 //    Mistral-NeMo width the group is 4 rows, so each KV row is read once per
 //    group.  Bound: bytes of KV read (each cache row is used for 4*G*D flops).
 //    The design keeps many rows in flight: each warp (or, at D < 128, each
-//    sub-warp of D/4 lanes) streams its own strided share of the positions
-//    max(0, pos-window+1) .. pos, U rows at a time, with a private online
-//    softmax; the partial (m, l, acc) of all warps are merged in shared
-//    memory at the end.
+//    sub-warp of D/4 lanes, D/6 at D = 96) streams its own strided share of
+//    the positions max(0, pos-window+1) .. pos, U rows at a time, with a
+//    private online softmax; the partial (m, l, acc) of all warps are merged
+//    in shared memory at the end.
 //
 // Both launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() so that a refused launch is reported to the caller.
@@ -59,6 +59,16 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+__device__ __forceinline__ void load2(const float* p, float (&o)[2]) {
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  o[0] = x.x; o[1] = x.y;
+}
+
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&o)[2]) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  o[0] = x.x; o[1] = x.y;
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
@@ -302,6 +312,7 @@ cudaError_t prefill_dims(int D, int bq, int bk, const void* q, const void* k,
     case 16: return prefill_tiles<T, 16>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
     case 32: return prefill_tiles<T, 32>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
     case 64: return prefill_tiles<T, 64>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
+    case 96: return prefill_tiles<T, 96>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
     case 128: return prefill_tiles<T, 128>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
     case 256: return prefill_tiles<T, 256>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
     default: return cudaErrorInvalidValue;
@@ -316,14 +327,26 @@ constexpr int DEC_THREADS = 256;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
 constexpr int DEC_ROWS = 4;   // query rows per block
 
+// A kv row is split over LANES lanes, which must divide the warp (the
+// shuffle sums run within aligned groups of LANES).  D = 96 takes 16 lanes
+// of 6 elements (with 4 elements a row would need 24 lanes).
 template <int D>
 struct DecodeShape {
-  static constexpr int EPL = D >= 128 ? D / 32 : 4;   // elements per lane
+  static constexpr int EPL =                          // elements per lane
+      D >= 128 ? D / 32 : (D == 96 ? 6 : 4);
+  static constexpr int VEC = EPL % 4 == 0 ? 4 : 2;    // elements per load
   static constexpr int LANES = D / EPL;               // lanes per kv row
   static constexpr int SLOTS = 32 / LANES;            // kv rows per warp step
   static constexpr int U = 32 / EPL;                  // steps in flight
   static constexpr int PARTS = DEC_WARPS * SLOTS;     // partial softmaxes
+  static_assert(D % EPL == 0 && EPL % VEC == 0 && 32 % LANES == 0,
+                "decode shape");
 };
+
+template <int V, typename T>
+__device__ __forceinline__ void loadv(const T* p, float (&o)[V]) {
+  if constexpr (V == 4) load4(p, o); else load2(p, o);
+}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(DEC_THREADS)
@@ -332,7 +355,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const int* __restrict__ pos_ptr, int Hq, int Hkv, int S,
                     int window, float softcap, float scale) {
   using DS = DecodeShape<D>;
-  constexpr int EPL = DS::EPL, LANES = DS::LANES, SLOTS = DS::SLOTS;
+  constexpr int EPL = DS::EPL, VEC = DS::VEC, LANES = DS::LANES;
+  constexpr int SLOTS = DS::SLOTS;
   constexpr int U = DS::U, PARTS = DS::PARTS, R = DEC_ROWS;
   __shared__ float m_sm[PARTS][R];
   __shared__ float l_sm[PARTS][R];
@@ -358,11 +382,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < R; ++r) {
     const size_t h = (size_t)kvh * group + row0 + r;
 #pragma unroll
-    for (int e = 0; e < EPL; e += 4) {
-      float x[4] = {0.f, 0.f, 0.f, 0.f};
-      if (r < nrows) load4(q + ((size_t)b * Hq + h) * D + d0 + e, x);
+    for (int e = 0; e < EPL; e += VEC) {
+      float x[VEC] = {};
+      if (r < nrows) loadv<VEC>(q + ((size_t)b * Hq + h) * D + d0 + e, x);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) qr[r][e + t] = x[t];
+      for (int t = 0; t < VEC; ++t) qr[r][e + t] = x[t];
     }
   }
 
@@ -383,14 +407,14 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < U; ++u) {
       const int p = base + slot + u * STRIDE;
 #pragma unroll
-      for (int e = 0; e < EPL; e += 4) {
-        float xk[4] = {0.f, 0.f, 0.f, 0.f}, xv[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int e = 0; e < EPL; e += VEC) {
+        float xk[VEC] = {}, xv[VEC] = {};
         if (p <= hi) {
-          load4(kb + (size_t)p * D + d0 + e, xk);
-          load4(vb + (size_t)p * D + d0 + e, xv);
+          loadv<VEC>(kb + (size_t)p * D + d0 + e, xk);
+          loadv<VEC>(vb + (size_t)p * D + d0 + e, xv);
         }
 #pragma unroll
-        for (int t = 0; t < 4; ++t) { kx[u][e + t] = xk[t]; vx[u][e + t] = xv[t]; }
+        for (int t = 0; t < VEC; ++t) { kx[u][e + t] = xk[t]; vx[u][e + t] = xv[t]; }
       }
     }
     float s[U][R];
@@ -474,6 +498,7 @@ cudaError_t decode_dims(int D, const void* q, const void* k, const void* v,
     case 16: return launch_decode<T, 16>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
     case 32: return launch_decode<T, 32>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
     case 64: return launch_decode<T, 64>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
+    case 96: return launch_decode<T, 96>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
     case 128: return launch_decode<T, 128>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
     case 256: return launch_decode<T, 256>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
     default: return cudaErrorInvalidValue;

@@ -1,11 +1,13 @@
 """Public kernel API of the port (``repro.kernels.ops``'s counterpart):
-attention, the Mamba selective scan and the RWKV-6 recurrence.
+the GEMM, attention, the Mamba selective scan and the RWKV-6 recurrence.
 
 The device of the tensors picks the path: a CPU tensor takes the plain
 version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
 kernel, whose wrapper launches it or raises.  Nothing falls back.  The
 kernels mask ragged shapes themselves, so unlike the reference's Pallas
-path these wrappers pad nothing and assert no multiple of a tile (the
+path these wrappers pad nothing and assert no multiple of a tile (``gemm``
+takes any M, N and K with ``gemm_tiles``' tiles as they are, where the
+reference pads X and W to its tiles and slices the product back; the
 ragged non-causal attention case is masked, where the reference's padding
 leaked weight onto zero keys; ``rwkv6`` takes any T, where the reference
 asserts ``T % 64 == 0`` above 64; ``ssm_scan`` takes any L and Dm, where
@@ -17,12 +19,22 @@ from __future__ import annotations
 import torch
 
 from . import ref as R
-from .autotile import attention_tiles
+from .autotile import attention_tiles, gemm_tiles
 from .flash_attention import decode_attention_cuda, flash_attention_cuda
+from .gemm import gemm_cuda
 from .rwkv6 import rwkv6_cuda
 from .ssm_scan import ssm_scan_cuda
 
-__all__ = ["flash_attention", "decode_attention", "ssm_scan", "rwkv6"]
+__all__ = ["gemm", "flash_attention", "decode_attention", "ssm_scan",
+           "rwkv6"]
+
+
+def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, K) @ w (K, N) → (M, N) in x's dtype, accumulated in fp32."""
+    if x.device.type == "cpu":
+        return R.gemm_ref(x, w)
+    t = gemm_tiles(x.shape[0], w.shape[-1], x.shape[-1], x.element_size())
+    return gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the attention, selective-scan and RWKV-6
-kernels (the port's counterpart of ``repro.kernels.ref``; same semantics,
-fp32 accumulation):
+"""Plain PyTorch versions of the GEMM, attention, selective-scan and
+RWKV-6 kernels (the port's counterpart of ``repro.kernels.ref``; same
+semantics, fp32 accumulation):
 
+  gemm_ref             : (M, K) @ (K, N) -> (M, N)
   attention_ref        : q (B, Hq, Tq, D), k/v (B, Hkv, Tk, D) -> (B, Hq, Tq, D)
                          causal / sliding-window / logit-softcap / GQA
   chunked_attention_ref: the same, streamed over kv chunks
@@ -17,6 +18,12 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+
+
+def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The product in fp32 (no TF32 on a card: the callers turn it off),
+    cast back to ``a``'s dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
 
 
 def _mask(tq: int, tk: int, *, causal: bool, window: int | None,

@@ -1,6 +1,8 @@
 """The decoder LM of the port: embed → periods → norm → logits
 (``repro.models.transformer``'s counterpart for layer patterns of attention
-and Mamba blocks, each with a dense or an MoE FFN, and of RWKV-6 blocks).
+and Mamba blocks, each with a dense or an MoE FFN, and of RWKV-6 blocks;
+``forward`` takes a vision or audio prefix of embeddings before the
+tokens).  Encoder-decoder models are :mod:`repro_torch.models.encdec`'s.
 
 Parameters and decode states are nested dicts of tensors with the same
 keys and shapes as the reference's pytrees, stacked over the period axis,
@@ -21,14 +23,16 @@ __all__ = ["init_params", "forward", "init_decode_state", "decode_step"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
+    """Raise for what this module does not run."""
     for spec in cfg.layer_pattern:
         if spec.kind not in ("attn", "mamba", "rwkv"):
             raise NotImplementedError(
                 f"{cfg.name}: {spec.kind} blocks are not ported yet")
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet")
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: use "
+            "repro_torch/models/encdec.py (init_params_encdec, "
+            "forward_encdec, decode_step_encdec)")
 
 
 def _check_backend(backend: str) -> None:
@@ -104,14 +108,15 @@ def _logits(params, x, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
             backend: str = "kernel"):
-    """tokens (B, T) int.  Returns fp32 logits (B, T, V) and the MoE aux
-    loss summed over layers (a 0-d fp32 tensor, 0 without MoE layers)."""
+    """tokens (B, T) int; ``prefix_embeds`` an optional (B, P, d) prefix
+    of patch or frame embeddings, put before the (scaled) token embeddings.
+    Returns fp32 logits (B, P + T, V) and the MoE aux loss summed over
+    layers (a 0-d fp32 tensor, 0 without MoE layers)."""
     check_supported(cfg)
     _check_backend(backend)
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix_embeds (vision/audio prefix) is "
-                                  "not ported yet")
     x = _embed(params, tokens, cfg)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     Bsz, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(Bsz, T)

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig
 
@@ -27,11 +28,18 @@ class ServeConfig:
 
 
 def build_serve_step(cfg: ModelConfig, backend: str = "kernel"):
-    """Returns ``step(params, state, token, pos)`` → (next-token logits,
-    state), the one-token step used by :func:`generate`."""
+    """Returns the one-token step → (next-token logits, state):
+    ``step(params, state, token, pos)`` for a decoder LM (the step of
+    :func:`generate`), ``step(params, state, token, pos, enc_out)`` for an
+    encoder-decoder model, ``enc_out`` from ``encdec.encode``."""
 
-    def step(params, state, token, pos):
-        return TF.decode_step(params, state, token, pos, cfg, backend)
+    if cfg.is_encoder_decoder:
+        def step(params, state, token, pos, enc_out):
+            return ED.decode_step_encdec(params, state, token, pos, enc_out,
+                                         cfg, backend)
+    else:
+        def step(params, state, token, pos):
+            return TF.decode_step(params, state, token, pos, cfg, backend)
 
     return step
 
@@ -40,6 +48,10 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
              backend: str = "kernel") -> torch.Tensor:
     """Greedy batched generation (decoder-only models).
     prompts (B, Tp) int32 → (B, Tp + max_new), on the prompts' device."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"generate serves decoder-only models; drive "
+                         f"{cfg.name} through build_serve_step with the "
+                         "encoder's output")
     Bsz, Tp = prompts.shape
     state = TF.init_decode_state(cfg, Bsz, Tp + max_new,
                                  device=prompts.device)

@@ -1,12 +1,15 @@
 """Batched serving example of the port: prefill + greedy decode with KV
 caches or recurrent states, the twin of ``examples/serve_lm.py``.  Serves
 the reduced (smoke) config of a decoder LM the port runs (the dense LMs,
-RWKV-6, the Jamba hybrid or the MoE LMs).
+RWKV-6, the Jamba hybrid, the MoE LMs or Phi-3-vision's decoder, without
+its image prefix, as the reference example serves it).  The
+encoder-decoder (whisper_base) has no ``generate``: it is refused here, as
+the reference example cannot serve it either.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm \
           --arch mistral_nemo_12b --batch 4 --new 24
-      (--arch rwkv6_7b, jamba_1_5_large_398b, deepseek_moe_16b or
-       llama4_scout_17b_a16e for the others)
+      (--arch rwkv6_7b, jamba_1_5_large_398b, deepseek_moe_16b,
+       llama4_scout_17b_a16e or phi_3_vision_4_2b for the others)
       (add --device cpu to run the plain path on the CPU)
 """
 
@@ -37,6 +40,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     cfg = get_config(args.arch, reduced=True)
+    if cfg.is_encoder_decoder:
+        ap.error(f"{args.arch} is an encoder-decoder model; serve_lm serves "
+                 "decoder LMs through generate (drive it through "
+                 "serve.engine.build_serve_step with encdec.encode's output)")
     device = check_device(args.device)
     gen = torch.Generator(device).manual_seed(args.seed)
     params = TF.init_params(cfg, gen, device)

@@ -1,11 +1,12 @@
-"""The port's attention, selective scan and RWKV-6 recurrence
-(repro_torch.kernels) against the JAX reference (repro.kernels) on the CPU, with inputs made by numpy from
-a seed.  The CUDA kernels themselves are held against these plain versions
-by tests/test_torch_cuda.py and chip_smoke.py on the card.
+"""The port's GEMM, attention, selective scan and RWKV-6 recurrence
+(repro_torch.kernels) against the JAX reference (repro.kernels) on the CPU,
+with inputs made by numpy from a seed.  The CUDA kernels themselves are
+held against these plain versions by tests/test_torch_cuda.py and
+chip_smoke.py on the card.
 
-Tolerances are those of tests/test_kernels.py: fp32 2e-4 for attention
-(streaming vs direct softmax) and 1e-4 for the scans, bf16 3e-2 (bf16
-operands and P)."""
+Tolerances are those of tests/test_kernels.py: fp32 1e-5 for the GEMM,
+2e-4 for attention (streaming vs direct softmax) and 1e-4 for the scans,
+bf16 2e-2 for the GEMM and 3e-2 for attention (bf16 operands and P)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +16,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as JR
 from repro.kernels.flash_attention import flash_attention_pallas
+from repro.kernels.gemm import gemm_pallas
 from repro.kernels.rwkv6 import rwkv6_pallas
 from repro.kernels.ssm_scan import ssm_scan_pallas
 from repro_torch.kernels import ops, autotile
@@ -22,6 +24,7 @@ from repro_torch.kernels import ref as TR
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
+from repro_torch.kernels.gemm import gemm_cuda
 from repro_torch.kernels.rwkv6 import rwkv6_cuda
 from repro_torch.kernels.ssm_scan import ssm_scan_cuda
 
@@ -50,6 +53,81 @@ def _close(t, j, tol):
 
 
 # ---------------------------------------------------------------------------
+# GEMM (K1's plain version and tiles)
+# ---------------------------------------------------------------------------
+
+def _gemm_case(M, N, K, seed=0):
+    rs = np.random.RandomState(seed)
+    return (rs.standard_normal((M, K)).astype(np.float32),
+            rs.standard_normal((K, N)).astype(np.float32))
+
+
+@pytest.mark.parametrize("M,N,K,bm,bn,bk", [
+    (32, 32, 64, 16, 16, 32),
+    (64, 48, 32, 16, 16, 16),
+    (16, 128, 16, 16, 64, 16),
+])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_gemm_ref_and_ops_vs_pallas_interpret(M, N, K, bm, bn, bk, dtype,
+                                             tol):
+    """tests/test_kernels.py:32-36's shapes and tiles: the Pallas kernel
+    in interpret mode against gemm_ref and ops.gemm on CPU tensors."""
+    j, t = _both(_gemm_case(M, N, K, seed=M + N), dtype)
+    want = gemm_pallas(*j, bm=bm, bn=bn, bk=bk, interpret=True)
+    for got in (TR.gemm_ref(*t), ops.gemm(*t)):
+        assert got.dtype == t[0].dtype and got.shape == (M, N)
+        _close(got, want, tol)
+    _close(TR.gemm_ref(*t), JR.gemm_ref(*j), tol)
+
+
+def test_ops_gemm_ragged_vs_reference_ops():
+    """The ragged (33x70)·(70x45) case of tests/test_kernels.py:50: the
+    reference pads to its tiles, the port pads nothing."""
+    j, t = _both(_gemm_case(33, 45, 70, seed=5))
+    want = jops.gemm(*j, backend="interpret")
+    _close(ops.gemm(*t), want, 1e-4)
+    np.testing.assert_allclose(ops.gemm(*t).numpy(), t[0].numpy() @
+                               t[1].numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("M,N,K", [(1, 1, 1), (1, 5120, 5120), (7, 45, 70),
+                                   (33, 45, 70), (2048, 14336, 5120),
+                                   (512, 512, 512), (8192, 8192, 8192)])
+def test_gemm_tiles_fit_and_are_built(dtype_bytes, M, N, K):
+    t = autotile.gemm_tiles(M, N, K, dtype_bytes)
+    assert (t.bm, t.bn, t.bk) in autotile.GEMM_TILES[dtype_bytes]
+    assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, dtype_bytes,
+                                    autotile.GEMM_STAGES) \
+        <= autotile.SMEM_BYTES
+    if M <= 16:
+        assert t.bm == 16      # decode-shaped products take the 16-row tile
+    if min(M, N, K) >= 512:
+        assert (t.bm, t.bn) == (128, 128)   # square-ish, the largest built
+
+
+def test_gemm_tiles_respect_budget_and_raise():
+    smallest = min(autotile.gemm_smem_bytes(*t, 2)
+                   for t in autotile.GEMM_TILES[2])
+    with pytest.raises(ValueError, match="no GEMM tile fits"):
+        autotile.gemm_tiles(8192, 8192, 8192, 2, smem_budget=smallest - 1)
+    t = autotile.gemm_tiles(8192, 8192, 8192, 2, smem_budget=24 * 1024)
+    assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, 2) <= 24 * 1024
+    assert t.bm < 128
+    with pytest.raises(ValueError, match="no GEMM tiles built"):
+        autotile.gemm_tiles(64, 64, 64, 8)
+
+
+def test_gemm_cuda_rejects_cpu_and_meta_tensors():
+    _, (x, w) = _both(_gemm_case(16, 64, 32))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gemm_cuda(x, w, bm=16, bn=64, bk=16)
+    xm, wm = x.to("meta"), w.to("meta")
+    with pytest.raises(ValueError):
+        ops.gemm(xm, wm)
+
+
+# ---------------------------------------------------------------------------
 # plain versions against the JAX refs
 # ---------------------------------------------------------------------------
 
@@ -75,6 +153,18 @@ def test_attention_ref_noncausal_and_offset(Tq, Tk, offset):
         *j, causal=False), F32_TOL)
     _close(TR.attention_ref(*t, causal=True, offset=offset),
            JR.attention_ref(*j, causal=True, offset=offset), F32_TOL)
+
+
+@pytest.mark.parametrize("causal,Tq,Tk", [(True, 40, 40), (False, 24, 50),
+                                           (False, 1, 77)])
+def test_attention_ref_head_dim_96(causal, Tq, Tk):
+    """Phi-3-vision's head_dim; non-causal over a ragged Tk as in
+    cross-attention (Tq = 1 is a decode step's query over the frames)."""
+    j, t = _both(_case(2, 4, 4, Tq, Tk, 96, seed=12))
+    _close(TR.attention_ref(*t, causal=causal),
+           JR.attention_ref(*j, causal=causal), F32_TOL)
+    _close(ops.flash_attention(*t, causal=causal),
+           JR.attention_ref(*j, causal=causal), F32_TOL)
 
 
 def test_attention_ref_bf16():

@@ -1,8 +1,9 @@
-"""The port's decoder LMs (dense, RWKV-6, the Jamba hybrid and the MoE LMs;
-repro_torch.models / serve) against the JAX reference (repro.models /
-serve) on the CPU: parameters initialized by ``repro`` and converted, token
-inputs made by numpy from a seed.  Plus the guards that keep the port apart
-from JAX and from ``repro``.
+"""The port's models (the decoder LMs — dense, RWKV-6, the Jamba hybrid,
+the MoE LMs, Phi-3-vision with its prefix — and the Whisper
+encoder-decoder; repro_torch.models / serve) against the JAX reference
+(repro.models / serve) on the CPU: parameters initialized by ``repro`` and
+converted, token and embedding inputs made by numpy from a seed.  Plus the
+guards that keep the port apart from JAX and from ``repro``.
 
 fp32 tolerance 1e-4 (tests/test_arch_smoke.py's decode-vs-forward bound)."""
 
@@ -20,17 +21,21 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models import blocks as JB
+from repro.models import encdec as JED
 from repro.models import transformer as JTF
 from repro.serve import engine as jengine
 from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import blocks as TB
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as TF
 from repro_torch.models.common import BlockSpec, ModelConfig
 from repro_torch.serve import engine, serve_lm
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
+DECODER_IDS = [a for a in PORTED_IDS
+               if not get_config(a, reduced=True).is_encoder_decoder]
 MOE_IDS = [a for a in PORTED_IDS
            if any(s.moe for s in get_config(a, reduced=True).layer_pattern)]
 
@@ -81,13 +86,15 @@ def test_unported_configs_raise():
     with pytest.raises(KeyError):
         get_config("gpt5")
     assert get_config("mistral-nemo-12b").name == "mistral-nemo-12b"
+    assert get_config("whisper-base").is_encoder_decoder
+    assert get_config("phi-3-vision-4.2b").prefix_len == 576
 
 
 # ---------------------------------------------------------------------------
 # model parity, fp32
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", PORTED_IDS)
+@pytest.mark.parametrize("arch", DECODER_IDS)
 def test_forward_and_decode_match_reference(arch):
     jcfg, jparams, tcfg, tparams = _setup(arch)
     toks = _tokens(tcfg, 2, 12, seed=1)
@@ -124,7 +131,7 @@ def test_forward_and_decode_match_reference(arch):
                                        rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("arch", PORTED_IDS)
+@pytest.mark.parametrize("arch", DECODER_IDS)
 def test_generate_matches_reference(arch):
     jcfg, jparams, tcfg, tparams = _setup(arch)
     prompts = _tokens(tcfg, 2, 5, seed=2)
@@ -276,6 +283,181 @@ def test_rwkv_chunked_path_matches_reference():
 
 
 # ---------------------------------------------------------------------------
+# vision prefix (Phi-3-vision) and encoder-decoder (Whisper)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL),
+                                       ("bfloat16", 5e-2)])
+def test_prefix_forward_matches_reference(dtype, tol):
+    """Phi-3-vision's patch embeddings go before the token embeddings and
+    the positions run over both; bf16 at _check_forward_bf16's bound."""
+    jcfg, jparams, tcfg, tparams = _setup("phi_3_vision_4_2b", dtype)
+    toks = _tokens(tcfg, 2, 8, seed=8)
+    prefix = np.random.RandomState(9).standard_normal(
+        (2, tcfg.prefix_len, tcfg.d_model)).astype(np.float32)
+    jlog, _ = JTF.forward(jparams, jax.numpy.asarray(toks), jcfg,
+                          prefix_embeds=jax.numpy.asarray(prefix))
+    tlog, aux = TF.forward(tparams, torch.from_numpy(toks), tcfg,
+                           prefix_embeds=torch.from_numpy(prefix))
+    assert tlog.shape == (2, tcfg.prefix_len + 8, tcfg.vocab_size)
+    assert tlog.dtype == torch.float32 and float(aux) == 0.0
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=tol, atol=tol)
+    # the tokens' logits differ from a forward without the prefix
+    plain, _ = TF.forward(tparams, torch.from_numpy(toks), tcfg)
+    assert not torch.allclose(plain, tlog[:, tcfg.prefix_len:], atol=1e-2)
+
+
+def _setup_encdec(dtype="float32"):
+    """(jax cfg, jax params, port cfg, port params) for whisper's smoke
+    config."""
+    jcfg = dataclasses.replace(jax_get_config("whisper_base", reduced=True),
+                               dtype=dtype)
+    tcfg = dataclasses.replace(get_config("whisper_base", reduced=True),
+                               dtype=dtype)
+    jparams = JED.init_params_encdec(jcfg, jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jparams)
+    return jcfg, jparams, tcfg, params_from_jax(tree, tcfg, device="cpu")
+
+
+def _frames(cfg, B, T, seed=10):
+    return np.random.RandomState(seed).standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)
+
+
+def test_encdec_forward_and_decode_match_reference():
+    """Whisper smoke in fp32 over a ragged encoder length (30 of 32
+    frames): encode, forward_encdec, every teacher-forced decode step and
+    every cache leaf against the reference, and the steps against the
+    port's own forward."""
+    jcfg, jparams, tcfg, tparams = _setup_encdec()
+    frames, toks = _frames(tcfg, 2, 30), _tokens(tcfg, 2, 10, seed=11)
+    jenc = JED.encode(jparams, jax.numpy.asarray(frames), jcfg)
+    enc = ED.encode(tparams, torch.from_numpy(frames), tcfg)
+    np.testing.assert_allclose(_f32(enc), _f32(jenc), rtol=TOL, atol=TOL)
+    jlog = JED.forward_encdec(jparams, jax.numpy.asarray(toks),
+                              jax.numpy.asarray(frames), jcfg)
+    tlog = ED.forward_encdec(tparams, torch.from_numpy(toks),
+                             torch.from_numpy(frames), tcfg)
+    assert tlog.shape == (2, 10, tcfg.vocab_size)
+    assert tlog.dtype == torch.float32
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=TOL, atol=TOL)
+
+    jstep = jax.jit(lambda p, s, t, pos, e: JED.decode_step_encdec(
+        p, s, t, pos, e, jcfg))
+    jstate = JED.init_decode_state_encdec(jcfg, 2, 10)
+    tstate = ED.init_decode_state_encdec(tcfg, 2, 10, device="cpu")
+    for t in range(10):
+        jl, jstate = jstep(jparams, jstate, jax.numpy.asarray(toks[:, t]), t,
+                           jenc)
+        pos = t if t % 2 else torch.tensor(t, dtype=torch.int32)
+        tl, tstate = ED.decode_step_encdec(
+            tparams, tstate, torch.from_numpy(toks[:, t]), pos, enc, tcfg)
+        np.testing.assert_allclose(_f32(tl), _f32(jl), rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(_f32(tl), _f32(tlog[:, t]), rtol=TOL,
+                                   atol=TOL)
+    assert set(tstate) == set(jstate) == {"k", "v"}
+    for leaf in jstate:
+        assert tstate[leaf].shape == jstate[leaf].shape
+        np.testing.assert_allclose(_f32(tstate[leaf]), _f32(jstate[leaf]),
+                                   rtol=TOL, atol=TOL)
+
+
+def test_encdec_serve_step_matches_reference():
+    """build_serve_step's encoder-decoder step, step(params, state, token,
+    pos, enc_out) (the contract of tests/test_serve_sim.py:674), driven
+    through a teacher-forced + greedy loop in both packages: the same
+    tokens."""
+    jcfg, jparams, tcfg, tparams = _setup_encdec()
+    frames, prompt = _frames(tcfg, 2, 32, seed=12), _tokens(tcfg, 2, 4, 13)
+    jstep, _ = jengine.build_serve_step(jcfg)
+    tstep = engine.build_serve_step(tcfg)
+    jenc = JED.encode(jparams, jax.numpy.asarray(frames), jcfg)
+    enc = ED.encode(tparams, torch.from_numpy(frames), tcfg)
+    jstate = JED.init_decode_state_encdec(jcfg, 2, 9)
+    tstate = ED.init_decode_state_encdec(tcfg, 2, 9, device="cpu")
+    before = {k: v.shape for k, v in tstate.items()}
+    pos = torch.zeros((), dtype=torch.int32)
+    jtoks, ttoks = [prompt[:, 0]], [prompt[:, 0]]
+    for t in range(8):
+        jl, jstate = jstep(jparams, jstate, jax.numpy.asarray(jtoks[-1]), t,
+                           jenc)
+        tl, tstate = tstep(tparams, tstate, torch.from_numpy(ttoks[-1]), pos,
+                           enc)
+        pos += 1
+        assert tl.shape == (2, tcfg.vocab_size) and tl.dtype == torch.float32
+        nxt = t + 1 < 4
+        jtoks.append(prompt[:, t + 1] if nxt else
+                     np.asarray(jax.numpy.argmax(jl, -1), np.int32))
+        ttoks.append(prompt[:, t + 1] if nxt else
+                     tl.argmax(-1).to(torch.int32).numpy())
+    np.testing.assert_array_equal(np.stack(ttoks, 1), np.stack(jtoks, 1))
+    assert {k: v.shape for k, v in tstate.items()} == before
+
+
+def test_encdec_forward_bf16_matches_reference():
+    """Whisper in bf16 (plain tanh GELU, no GLU), at _check_forward_bf16's
+    bound; logits stay in the model dtype, as the reference returns them."""
+    jcfg, jparams, tcfg, tparams = _setup_encdec("bfloat16")
+    frames, toks = _frames(tcfg, 2, 32, seed=14), _tokens(tcfg, 2, 8, 15)
+    jlog = JED.forward_encdec(jparams, jax.numpy.asarray(toks),
+                              jax.numpy.asarray(frames), jcfg)
+    tlog = ED.forward_encdec(tparams, torch.from_numpy(toks),
+                             torch.from_numpy(frames), tcfg)
+    assert tlog.dtype == torch.bfloat16
+    np.testing.assert_allclose(_f32(tlog), _f32(jlog), rtol=5e-2, atol=5e-2)
+
+
+def test_encdec_init_params_shapes_and_seed():
+    cfg = get_config("whisper_base", reduced=True)
+    a = ED.init_params_encdec(cfg, torch.Generator().manual_seed(3), "cpu")
+    b = ED.init_params_encdec(cfg, torch.Generator().manual_seed(3), "cpu")
+    meta = ED.init_params_encdec(cfg, device="meta")
+    ref = jax.eval_shape(lambda: JED.init_params_encdec(
+        jax_get_config("whisper_base", reduced=True), jax.random.PRNGKey(0)))
+    flat_ref = {jax.tree_util.keystr(k): v for k, v in
+                jax.tree_util.tree_leaves_with_path(ref)}
+    flat, flat_b, flat_meta = (
+        {jax.tree_util.keystr(k): v for k, v in
+         jax.tree_util.tree_leaves_with_path(tree)} for tree in (a, b, meta))
+    assert set(flat) == set(flat_ref) == set(flat_meta)
+    for k, v in flat.items():
+        assert tuple(v.shape) == flat_ref[k].shape, k
+        assert v.dtype == getattr(torch, flat_ref[k].dtype.name), k
+        assert torch.equal(v, flat_b[k]), k
+        assert flat_meta[k].device.type == "meta"
+    assert a["enc"]["self"]["wq"]["w"].shape[0] == cfg.n_enc_layers
+    assert a["dec"]["cross"]["wkv"]["w"].shape == \
+        (cfg.n_layers, cfg.d_model, 2 * cfg.n_kv_heads * cfg.hd)
+
+
+def test_params_from_jax_takes_the_encdec_tree():
+    """The encoder-decoder pytree converts leaf by leaf, bits unchanged; a
+    decoder LM's tree, or one missing the cross block, is refused."""
+    jcfg = jax_get_config("whisper_base", reduced=True)
+    cfg = get_config("whisper_base", reduced=True)
+    tree = jax.tree.map(np.asarray, JED.init_params_encdec(
+        jcfg, jax.random.PRNGKey(7)))
+    got = params_from_jax(tree, cfg, device="cpu")
+    flat = {jax.tree_util.keystr(k): v for k, v in
+            jax.tree_util.tree_leaves_with_path(got)}
+    flat_ref = {jax.tree_util.keystr(k): v for k, v in
+                jax.tree_util.tree_leaves_with_path(tree)}
+    assert set(flat) == set(flat_ref) and len(flat) == 23
+    for k, v in flat.items():
+        assert v.dtype == torch.bfloat16, k
+        np.testing.assert_array_equal(v.float().numpy(),
+                                      flat_ref[k].astype(np.float32))
+    dec_tree = jax.tree.map(np.asarray, JTF.init_params(
+        jax_get_config("phi_3_vision_4_2b", reduced=True),
+        jax.random.PRNGKey(7)))
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(dec_tree, cfg, device="cpu")
+    del tree["dec"]["cross"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_jax(tree, cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
 # entry points and guards
 # ---------------------------------------------------------------------------
 
@@ -288,6 +470,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
         TF.init_decode_state(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_lm.main(["--new", "2"])
+    ed_cfg = get_config("whisper_base", reduced=True)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ED.init_params_encdec(ed_cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ED.init_decode_state_encdec(ed_cfg, 1, 8)
 
 
 def _check_init_params(arch):
@@ -398,18 +585,24 @@ def test_unsupported_features_raise():
     cfg = get_config("mistral_nemo_12b", reduced=True)
     params = TF.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="prefix_embeds"):
-        TF.forward(params, toks, cfg, prefix_embeds=torch.zeros(1, 2, 64))
     with pytest.raises(ValueError, match="backend"):
         TF.forward(params, toks, cfg, backend="pallas")
-    # an encoder-decoder config (whisper_base's, in the port's types)
+    # an encoder-decoder config (whisper_base's, rebuilt from the
+    # reference's in the port's types) belongs to models/encdec.py
     ref = jax_get_config("whisper_base", reduced=True)
     fields = {f.name: getattr(ref, f.name)
               for f in dataclasses.fields(ModelConfig)}
     fields["layer_pattern"] = tuple(BlockSpec(**dataclasses.asdict(s))
                                     for s in ref.layer_pattern)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        TF.init_params(ModelConfig(**fields), device="cpu")
+    ed_cfg = ModelConfig(**fields)
+    assert ed_cfg == get_config("whisper_base", reduced=True)
+    for fn in (lambda: TF.init_params(ed_cfg, device="cpu"),
+               lambda: TF.forward(params, toks, ed_cfg),
+               lambda: TF.init_decode_state(ed_cfg, 1, 4, device="cpu")):
+        with pytest.raises(ValueError, match="models/encdec.py"):
+            fn()
+    with pytest.raises(ValueError, match="decoder-only"):
+        engine.generate(params, ed_cfg, toks, max_new=2)
 
 
 def test_convert_rejects_mismatched_tree():
@@ -447,6 +640,19 @@ def test_serve_lm_twin_runs_hybrid_and_moe_on_cpu(arch, capsys):
     assert out.shape == (2, 5)
     printed = capsys.readouterr().out
     assert f"arch={get_config(arch, reduced=True).name}" in printed
+
+
+def test_serve_lm_twin_runs_phi3v_on_cpu(capsys):
+    out = serve_lm.main(["--device", "cpu", "--arch", "phi_3_vision_4_2b",
+                         "--batch", "2", "--prompt-len", "3", "--new", "2"])
+    assert out.shape == (2, 5)
+    assert "arch=phi3v-smoke" in capsys.readouterr().out
+
+
+def test_serve_lm_twin_refuses_the_encoder_decoder(capsys):
+    with pytest.raises(SystemExit):
+        serve_lm.main(["--device", "cpu", "--arch", "whisper_base"])
+    assert "encoder-decoder" in capsys.readouterr().err
 
 
 def _port_files():
