@@ -11,11 +11,18 @@ Phases, each of which stops the run with a non-zero exit on failure:
    GEMM over the reference's shapes, ragged, decode-shaped (M = 1, 7),
    unaligned and one large product, in both dtypes; flash attention over
    GQA / window / softcap / ragged / dtype / head_dim cases (head_dim 96
-   causal, non-causal over 1500 keys, and in decode); the RWKV-6 recurrence
+   causal, non-causal over 1500 keys, and in decode), every instantiation
+   of each dtype's prefill kernel (bf16 on the tensor cores, fp32 on the
+   CUDA cores), and ragged multi-head, Tq = 1, offset + window, GQA group
+   1 / 4 / 32 and softcap at head_dim 256 cases at each built tile, head
+   by head, every bf16 prefill also against the plain version in fp32
+   relative to the output's row scale; the RWKV-6 recurrence
    over dtype / head size / (B, H) / ragged T; the Mamba selective scan over
    dtype / state size / (Bt, L, Dm);
 4. the main paths, in bf16 with random weights from a seeded generator, the
-   kernels' launch counters reset before and read after each run:
+   kernels' launch counters reset before and read after each run (and
+   every K2 prefill launch checked to have been reported by the library as
+   a launch of the tensor-core kernel):
    a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
       2048-token prompt and ``generate`` (batch 4, prompt 16, 24 new);
    b. RWKV-6 7B at full width and depth — the same two runs (``forward``
@@ -41,10 +48,13 @@ Phases, each of which stops the run with a non-zero exit on failure:
 6. Gemma-2 smoke width (window, softcap, post-norms, tied head) and Jamba
    smoke width in fp32 at its own capacity factor (MoE drops in decode)
    through ``generate``, kernels against the plain path;
-7. each kernel timed with CUDA events at the main paths' shapes beside its
-   bound, its plain version and, where there is one, one PyTorch library
-   call (a yardstick the port never calls); K1 also at 512^3 fp32, K2
-   prefill also at Whisper's encoder and Phi-3-vision's shapes.
+7. each kernel timed with CUDA events (after 0.1 s of warm-up calls) at the
+   main paths' shapes beside its bound, its plain version and, where there
+   is one, one PyTorch library call (a yardstick the port never calls),
+   with the card's clock, power and temperature logged before and after;
+   K1 also at 512^3 fp32, K2 prefill also at Phi-3-vision's, Whisper's
+   encoder and Whisper's cross-attention step shapes, with every built
+   tile's time at each and the output also held to the fp32 plain version.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -77,6 +87,26 @@ RWKV = dict(source="src/repro_torch/csrc/rwkv6.cu",
 SSM = dict(source="src/repro_torch/csrc/ssm_scan.cu",
            replaces="src/repro/kernels/ssm_scan.py:28")
 BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
+# bf16 K2 prefill against the plain version in fp32 from the same inputs,
+# relative to |want| plus the rms of want's row (ref.attention_rel_err):
+# the reference's own roundings (P and O to bf16) read up to 2.6 x 2^-8 on
+# this file's cases, a kv tile skipped in long rows or late rows 10% off
+# read 0.08 and more; the 3e-2 gate alone does not see the latter
+BF16_REL_TOL = 3 * BF16_ULP
+# K2 prefill edge cases, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap,
+# offset); tests/test_torch_cuda.py holds the same
+EDGE_CASES = (
+    (2, 4, 2, 77, 150, 64, False, None, None, 0),
+    (3, 4, 4, 33, 333, 96, True, None, None, 300),
+    (4, 8, 8, 1, 1500, 64, False, None, None, 0),
+    (1, 8, 2, 64, 512, 128, True, 256, None, 448),
+    (1, 4, 1, 100, 612, 128, True, 40, None, 512),
+    (2, 4, 4, 130, 130, 64, True, None, None, 0),
+    (2, 16, 4, 130, 130, 64, True, None, None, 0),
+    (1, 32, 1, 130, 130, 32, True, None, None, 0),
+    (2, 8, 4, 200, 200, 256, True, None, 50.0, 0),
+    (1, 4, 2, 77, 130, 256, False, 30, 30.0, 0),
+)
 
 
 def log(msg: str) -> None:
@@ -87,17 +117,32 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def check_close(name, got, want, tol) -> float:
-    """|got - want| <= tol + tol*|want| everywhere; returns the max abs error."""
+def check_close(name, got, want, tol, quiet=False) -> float:
+    """|got - want| <= tol + tol*|want| everywhere; returns the max abs error
+    (logged unless ``quiet``; a failure is always reported)."""
     import torch
     if not torch.isfinite(got.float()).all():
         fail(f"{name}: non-finite output")
     diff = (got.float() - want.float()).abs()
     excess = (diff - tol * want.float().abs()).max().item()
     err = diff.max().item()
-    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
+    if not quiet or excess > tol:
+        log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
     if excess > tol:
         fail(f"{name}: outside tolerance {tol}")
+    return err
+
+
+def check_rel(name, got, q, k, v, kw, quiet=False) -> float:
+    """A bf16 K2 prefill output within ``BF16_REL_TOL`` of the plain version
+    computed in fp32 (``ref.attention_rel_err``); returns the reading."""
+    from repro_torch.kernels import ref as R
+    err = R.attention_rel_err(got, q, k, v, **kw)
+    if not quiet or err > BF16_REL_TOL:
+        log(f"  {name}: rel_err={err:.3e} (tol {BF16_REL_TOL:g} of |want| "
+            "+ row rms, fp32 plain)")
+    if err > BF16_REL_TOL:
+        fail(f"{name}: outside {BF16_REL_TOL:g} of the fp32 plain version")
     return err
 
 
@@ -120,11 +165,15 @@ def check_scaled(name, got, want, tol) -> float:
     return err
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, reps: int = 20, warm_s: float = 0.1) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls between CUDA events, after at
+    least 3 calls and ``warm_s`` seconds of them (the clocks settle)."""
     import torch
-    for _ in range(warmup):
+    t0, n = time.perf_counter(), 0
+    while n < 3 or time.perf_counter() - t0 < warm_s:
         fn()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        n += 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -133,6 +182,18 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def on_tensor_cores(n: int) -> str:
+    """Fails unless all ``n`` K2 prefill launches since the counters were
+    reset went, as the library reports, to the tensor-core kernel (the only
+    bf16 route); returns the log's note."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    tc = flash_attention_cuda.tensor_core_launches
+    if tc != n:
+        fail(f"{tc} of {n} bf16 K2 prefill launches took the tensor-core "
+             "kernel")
+    return f"K2 prefill on the tensor-core kernel: {tc} of {n}"
 
 
 def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
@@ -257,28 +318,62 @@ def main() -> int:
                        rand(1, Hkv, Tk, D, dtype=dtype))
             kw = dict(causal=causal, window=window, softcap=cap, offset=off)
             got = ops.flash_attention(q, k, v, **kw)
-            check_close(f"prefill {tag} H=({Hq},{Hkv}) D={D} Tq={Tq} Tk={Tk} "
-                        f"causal={causal} window={window} softcap={cap} "
-                        f"offset={off}", got, R.attention_ref(q, k, v, **kw),
-                        tol)
-        # every built (head_dim, bq, bk) instantiation, ragged and windowed
+            name = (f"prefill {tag} H=({Hq},{Hkv}) D={D} Tq={Tq} Tk={Tk} "
+                    f"causal={causal} window={window} softcap={cap} "
+                    f"offset={off}")
+            check_close(name, got, R.attention_ref(q, k, v, **kw), tol)
+            if dtype == torch.bfloat16:
+                check_rel(name, got, q, k, v, kw)
+        # every built (head_dim, bq, bk) instantiation of the dtype's
+        # kernel, ragged and windowed
+        route = "tensor-core" if dtype == torch.bfloat16 else "CUDA-core"
         for D in HEAD_DIMS:
             q, k, v = (rand(2, 4, 150, D, dtype=dtype),
                        rand(2, 2, 150, D, dtype=dtype),
                        rand(2, 2, 150, D, dtype=dtype))
             want = R.attention_ref(q, k, v, window=40, softcap=30.0)
-            for bq in autotile.BQ_CHOICES:
-                for bk in autotile.BK_CHOICES:
-                    got = flash_attention_cuda(q, k, v, bq=bq, bk=bk,
-                                               window=40, softcap=30.0)
-                    check_close(f"prefill {tag} D={D} tiles=({bq},{bk}) "
-                                "T=150 window=40 softcap=30", got, want, tol)
+            for bq, bk in autotile.attention_built_tiles(D, q.element_size()):
+                got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, window=40,
+                                           softcap=30.0)
+                name = (f"prefill {tag} {route} D={D} tiles=({bq},{bk}) "
+                        "T=150 window=40 softcap=30")
+                check_close(name, got, want, tol)
+                if dtype == torch.bfloat16:
+                    check_rel(name, got, q, k, v,
+                              dict(window=40, softcap=30.0))
             q1 = q[:, :, :1].contiguous()
             pos = torch.tensor(97, dtype=torch.int32, device=dev)
             check_close(f"decode {tag} D={D} S=150 pos=97 window=40",
                         decode_attention_cuda(q1, k, v, pos, window=40),
                         R.decode_attention_ref(q1, k, v, window=40, pos=97),
                         tol)
+        # ragged Tq and Tk with B*H > 1 (a tile past T reads and writes no
+        # row of the next head), Whisper's cross step, offset + window, GQA
+        # groups 1 / 4 / 32 and softcap at D = 256: every head, every tile
+        for B, Hq, Hkv, Tq, Tk, D, causal, window, cap, off in EDGE_CASES:
+            q, k, v = (rand(B, Hq, Tq, D, dtype=dtype),
+                       rand(B, Hkv, Tk, D, dtype=dtype),
+                       rand(B, Hkv, Tk, D, dtype=dtype))
+            kw = dict(causal=causal, window=window, softcap=cap, offset=off)
+            want = R.attention_ref(q, k, v, **kw)
+            rel = []
+            for bq, bk in autotile.attention_built_tiles(D, q.element_size()):
+                got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
+                name = (f"prefill {tag} {route} B={B} H=({Hq},{Hkv}) D={D} "
+                        f"Tq={Tq} Tk={Tk} causal={causal} window={window} "
+                        f"softcap={cap} offset={off} tiles=({bq},{bk})")
+                if dtype == torch.bfloat16:
+                    rel.append(check_rel(name, got, q, k, v, kw, quiet=True))
+                for b in range(B):
+                    for h in range(Hq):
+                        check_close(f"{name} b={b} h={h}", got[b, h],
+                                    want[b, h], tol, quiet=True)
+            log(f"  prefill {tag} {route} B={B} H=({Hq},{Hkv}) D={D} Tq={Tq} "
+                f"Tk={Tk} causal={causal} window={window} softcap={cap} "
+                f"offset={off}: every head within {tol:g} at tiles "
+                f"{autotile.attention_built_tiles(D, q.element_size())}"
+                + (f", rel_err at most {max(rel):.3e} (tol "
+                   f"{BF16_REL_TOL:g})" if rel else ""))
         for (Hq, Hkv, D) in ((32, 8, 128), (16, 8, 256), (32, 32, 96)):
             S = 4096
             q = rand(4, Hq, 1, D, dtype=dtype)
@@ -330,6 +425,7 @@ def main() -> int:
     def reset():
         for c in counters:
             c.launches = 0
+        flash_attention_cuda.tensor_core_launches = 0
 
     def launches():
         """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
@@ -536,6 +632,7 @@ def main() -> int:
 
     # ---- 7. timings at the main paths' shapes -----------------------------
     log("phase 7 timings (CUDA events; bf16 unless marked)")
+    log(f"  card at the start: {_clocks()}")
     bf = torch.bfloat16
     kernels = []
     # K1 at the micro-bench's 512^3 in fp32 (logged) and at Mistral-NeMo's
@@ -564,42 +661,53 @@ def main() -> int:
         if keep:
             kernels.append(row)
         del x, w
-    T, Hq, Hkv, D = 2048, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = (rand(1, Hq, T, D, dtype=bf), rand(1, Hkv, T, D, dtype=bf),
-               rand(1, Hkv, T, D, dtype=bf))
-    bq, bk = autotile.attention_tiles(T, T, D)
-    kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk, causal=True)
-    plain = lambda: R.attention_ref(q, k, v, causal=True)
-    lib = _sdpa(q, k, v, causal=True)
-    err = check_close("prefill at the main path's shape", kern(), plain(),
-                      BF16_TOL)
-    flops = 4 * Hq * D * T * (T + 1) / 2
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel())
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    kernels.append(_row("flash_attention_prefill", fwd_launches[0], err,
-                        kern, plain, lib, b_ms, b_by,
-                        f"B=1 Hq={Hq} Hkv={Hkv} T={T} D={D} causal "
-                        f"tiles=({bq},{bk})", **FLASH))
-    # K2 prefill also at Whisper's encoder shape (non-causal over the 1500
-    # frames) and at Phi-3-vision's (head_dim 96, causal), logged
-    for Bp, Hp, Tp, Dp, causal, tag in (
-            (4, wcfg.n_heads, wcfg.enc_seq_len, wcfg.hd, False,
-             "Whisper encoder"),
-            (1, pcfg.n_heads, 2048, pcfg.hd, True, "Phi-3-vision")):
-        q, k, v = (rand(Bp, Hp, Tp, Dp, dtype=bf) for _ in range(3))
-        bq, bk = autotile.attention_tiles(Tp, Tp, Dp)
+    # K2 prefill in bf16 (the tensor-core kernel) at the main paths' shapes:
+    # Mistral-NeMo's forward (the row), Phi-3-vision's, Whisper's encoder
+    # and Whisper's cross-attention step (Tq = 1 over the 1500 frames), each
+    # beside its bound, the plain version and SDPA, with every built tile's
+    # time so that the intensity objective's pick can be judged.  4·D flops
+    # per unmasked (q, k) pair; q, k, v read and o written once
+    Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    for tag, Bp, Hp, Hkvp, Tqp, Tkp, Dp, causal in (
+            ("Mistral-NeMo", 1, Hq, Hkv, 2048, 2048, D, True),
+            ("Phi-3-vision", 1, pcfg.n_heads, pcfg.n_kv_heads, 2048, 2048,
+             pcfg.hd, True),
+            ("Whisper encoder", 4, wcfg.n_heads, wcfg.n_kv_heads,
+             wcfg.enc_seq_len, wcfg.enc_seq_len, wcfg.hd, False),
+            ("Whisper cross-attention step", 4, wcfg.n_heads,
+             wcfg.n_kv_heads, 1, wcfg.enc_seq_len, wcfg.hd, False)):
+        q = rand(Bp, Hp, Tqp, Dp, dtype=bf)
+        k, v = (rand(Bp, Hkvp, Tkp, Dp, dtype=bf) for _ in range(2))
+        bq, bk = autotile.attention_tiles(Tqp, Tkp, Dp, q.element_size())
         kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk,
                                             causal=causal)
         plain = lambda: R.attention_ref(q, k, v, causal=causal)
-        err = check_close(f"prefill at the {tag} shape", kern(), plain(),
+        got = kern()
+        err = check_close(f"prefill at the {tag} shape", got, plain(),
                           BF16_TOL)
-        pairs = Tp * (Tp + 1) / 2 if causal else Tp * Tp
-        b_ms, b_by = bound(4 * Bp * Hp * Dp * pairs, 2 * 4 * q.numel(),
-                           PEAK_BF16_FLOPS)
-        _row("flash_attention_prefill", None, err, kern, plain,
-             _sdpa(q, k, v, causal=causal), b_ms, b_by,
-             f"{tag}: B={Bp} H={Hp} T={Tp} D={Dp} causal={causal} "
-             f"tiles=({bq},{bk})", **FLASH)
+        check_rel(f"prefill at the {tag} shape", got, q, k, v,
+                  dict(causal=causal))
+        del got
+        pairs = Tqp * (Tqp + 1) / 2 if causal else Tqp * Tkp
+        flops = 4 * Bp * Hp * Dp * pairs
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row = _row("flash_attention_prefill",
+                   fwd_launches[0] if tag == "Mistral-NeMo" else None, err,
+                   kern, plain, _sdpa(q, k, v, causal=causal), b_ms, b_by,
+                   f"{tag}: B={Bp} Hq={Hp} Hkv={Hkvp} Tq={Tqp} Tk={Tkp} "
+                   f"D={Dp} causal={causal} tiles=({bq},{bk})", **FLASH)
+        log(f"    {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{b_ms / row['ms'] * 100:.1f}% of the bound")
+        for tb, tk in autotile.attention_built_tiles(Dp, q.element_size()):
+            ms = time_ms(lambda: flash_attention_cuda(q, k, v, bq=tb, bk=tk,
+                                                      causal=causal))
+            picked = " (picked)" if (tb, tk) == (bq, bk) else ""
+            log(f"    tiles ({tb},{tk}){picked}: {ms:.4f} ms, "
+                f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if tag == "Mistral-NeMo":
+            kernels.append(row)
+        del q, k, v
     S, Bd = 4096, 4
     q = rand(Bd, Hq, 1, D, dtype=bf)
     k, v = rand(Bd, Hkv, S, D, dtype=bf), rand(Bd, Hkv, S, D, dtype=bf)
@@ -678,6 +786,7 @@ def main() -> int:
                          lambda: blocks.mamba_step(jcfg, mamba_p, xm, state))
         del mamba_p, state
 
+    log(f"  card at the end: {_clocks()}")
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -734,7 +843,8 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
         mm_flops = _weight_flops(cfg, T)
         log(f"  forward B=1 T={T} (prefix {prefix}): {fwd_ms:.1f} ms "
             f"({T / fwd_ms * 1e3:.0f} "
-            f"prompt tok/s), logits finite, launches {fwd_launches}; weight "
+            f"prompt tok/s), logits finite, launches {fwd_launches} "
+            f"({on_tensor_cores(fwd_launches[0])}); weight "
             f"products {mm_flops / 1e12:.2f} TFLOP, bound "
             f"{mm_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
 
@@ -835,7 +945,8 @@ def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
                  "non-finite")
         del logits
         log(f"  forward_encdec B={B} frames={Te} tokens={Td}: {fwd_ms:.1f} "
-            f"ms, logits finite, launches {want}")
+            f"ms, logits finite, launches {want} "
+            f"({on_tensor_cores(want[0])})")
         reset()
         t0 = time.perf_counter()
         enc_out = ED.encode(params, frames, cfg)
@@ -867,7 +978,8 @@ def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
         log(f"  encode B={B} frames={Te}: {enc_ms:.1f} ms; serve steps "
             f"B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
             f"{gen_s * 1e3 / steps:.2f} ms per step ({steps} steps), "
-            f"{B * new / gen_s:.1f} tok/s, launches {launches()}")
+            f"{B * new / gen_s:.1f} tok/s, launches {launches()} "
+            f"({on_tensor_cores(L * steps)})")
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB")
     del params, enc_out, state
@@ -985,6 +1097,14 @@ def _step_vs_weights(name, params, fn) -> None:
     ms = time_ms(fn)
     log(f"  {name}: {ms:.4f} ms, weight-read bound "
         f"{nbytes / PEAK_BYTES * 1e3:.4f} ms ({nbytes / 1e9:.2f} GB)")
+
+
+def _clocks() -> str:
+    """The card's SM clock, power draw and temperature, from nvidia-smi."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
 
 
 def _leaves(tree):

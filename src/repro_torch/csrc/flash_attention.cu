@@ -3,24 +3,49 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (the score-stationary fused attention of LEGO Fig. 10: QK^T and PV share the
-// score tile on chip, with the softmax between them).  Two entry points:
+// score tile on chip, with the softmax between them).  What every entry point
+// computes is the reference's: scale D^-0.5 unless given, optional softcap
+// c*tanh(s/c) after the scale, a causal mask at an absolute offset, a sliding
+// window kpos > qpos - window, kv head h / (Hq/Hkv) without repeating KV,
+// running (m, l, acc) in fp32 and l == 0 -> 1.  Kv tiles that the causal and
+// window bounds exclude are never loaded.  Ragged Tq and Tk are masked here:
+// keys at kpos >= Tk get exactly zero weight, rows q >= Tq are not stored,
+// and the caller pads nothing.  Two entry points:
 //
-//  * lego_flash_prefill — any Tq, Tk.  One block per (q-tile, q-head, batch);
+//  * lego_flash_prefill — any Tq, Tk.  One block per (q tile, q head, batch);
 //    the kv tiles are a loop inside the block (on the TPU they were the
 //    sequential innermost grid axis, which has no counterpart on a GPU).
-//    Running (m, l, acc) in fp32, scale D^-0.5 unless given, optional softcap
-//    c*tanh(s/c), causal mask with an absolute offset, sliding window
-//    kpos > qpos - window, kv tiles that the causal/window bounds exclude are
-//    never visited, GQA reads kv head h / group without repeating KV, and
-//    l == 0 -> 1.  Rows q >= Tq and keys k >= Tk are masked here (keys past Tk
-//    get exactly zero weight), so the caller pads nothing.
 //    Bound: operations (4*D flops per unmasked (q, k) pair, far above the
-//    H100's bytes-per-flop line at D >= 64).  This first version computes on
-//    the CUDA cores in fp32 from fp32 tiles in shared memory; each thread owns
-//    a 4 x (bk/16) score micro-tile and a 4 x (D/16) output micro-tile so that
-//    every shared-memory load feeds several FMAs, and rows are padded to
-//    D + 1 floats so the micro-tile reads are free of bank conflicts.  Tensor
-//    cores (wgmma), TMA and warp specialisation are later work.
+//    H100's ~295 flops per byte at D >= 64).  One route per dtype:
+//
+//    - bf16: tensor cores (flash_prefill_tc_kernel).  Each consumer
+//      warpgroup owns 64 q rows; one producer warp issues TMA loads: Q once,
+//      then K and V tiles through a ring of TC_STAGES stages with full and
+//      empty mbarriers.  S = Q K^T is a wgmma.mma_async m64 n(BK) k16 with
+//      both operands in shared memory (K-major); the scale, softcap, masks
+//      and online softmax run on the fp32 accumulator registers, the row max
+//      and sum reduced over the 4 threads that share a row; P is rounded to
+//      bf16 in registers (the reference's p.astype(v.dtype)) and O += P V is
+//      a wgmma m64 n(D) k16 with P from registers and V (stored (Tk, D))
+//      from shared memory through the descriptor's transpose bit.  O stays
+//      in fp32 registers, is divided by l and rounded to bf16 once.  The
+//      tensor maps are 3-D (D, T, B*H), so a tile past T is zero-filled by
+//      the copy engine and never reads the next head's rows; the output is
+//      stored from registers row by row under the Tq mask.  Q tiles are
+//      launched in reverse order, so the causal tiles with the most kv tiles
+//      start first.  Of the tiles (bq, bk) in {64, 128}^2, autotile
+//      builds those whose layout fits 227 KB and whose accumulators fit the
+//      registers a thread gets; at D = 256 (a 64 x 256 fp32 O, 128
+//      registers a thread) that is only bq = bk = 64, one consumer
+//      warpgroup with up to 255 registers a thread, so no register
+//      reallocation (setmaxnreg) is needed.
+//    - fp32: CUDA-core FMAs (flash_prefill_f32_kernel).  wgmma takes fp32
+//      operands only as TF32 (10-bit mantissa), which fails the fp32 gate
+//      (2e-4 against the plain version) and the fp32 decode-vs-forward
+//      checks, so fp32 stays in full fp32 here: a choice by dtype, not a
+//      fallback (no bf16 input ever reaches this kernel).  Each
+//      thread owns a 4 x (bk/16) score micro-tile and a 4 x (D/16) output
+//      micro-tile, tiles are staged as fp32 rows padded to D + 1 floats.
 //
 //  * lego_flash_decode — Tq = 1 over a KV cache at a run-time position read
 //    from device memory (the host never syncs on it).  One block per
@@ -34,16 +59,29 @@
 //    in shared memory at the end.
 //
 // Both launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() so that a refused launch is reported to the caller.
+// cudaGetLastError() (or the error of a refused set-up) so that a failure is
+// reported to the caller.
+//
+// Which prefill tiles are instantiated is decided in Python
+// (repro_torch/kernels/autotile.py::attention_built_tiles): _build.py
+// includes a generated header before this file that lists them by dtype as
+// LEGO_F32_TILES(X) and LEGO_BF16_TILES(X), X(D, bq, bk) a tile.  Each
+// layout's static_assert refuses a listed tile that does not fit.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#if !defined(LEGO_F32_TILES) || !defined(LEGO_BF16_TILES)
+#error "build with repro_torch.kernels._build, which includes the tile lists"
+#endif
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;   // the finite mask value of the reference
+constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory of one sm_90 block
 
 // ---------------------------------------------------------------------------
 // element access
@@ -78,8 +116,33 @@ __device__ __forceinline__ float cap_score(float s, float softcap) {
   return softcap > 0.f ? softcap * tanhf(s / softcap) : s;
 }
 
+// the scaled, capped and masked score of one (q, k) pair, as the reference
+// computes it: NEG_INF where causal/window mask it, -inf (zero weight) past Tk
+__device__ __forceinline__ float masked_score(float s, int qpos, int kpos,
+                                              int Tk, int causal, int window,
+                                              float softcap, float scale) {
+  float x = cap_score(s * scale, softcap);
+  bool keep = true;
+  if (causal) keep = kpos <= qpos;
+  if (window > 0) keep = keep && (kpos > qpos - window);
+  x = keep ? x : NEG_INF;
+  return kpos >= Tk ? -INFINITY : x;
+}
+
+// the kv tiles [kt_lo, kt_hi) that rows q0 .. q_end-1 may attend to
+__device__ __forceinline__ void kv_tile_range(int q0, int q_end, int Tk, int bk,
+                                              int causal, int window,
+                                              int offset, int& kt_lo,
+                                              int& kt_hi) {
+  int k_lo = 0, k_hi = Tk;
+  if (causal) k_hi = min(k_hi, q_end - 1 + offset + 1);
+  if (window > 0) k_lo = max(0, q0 + offset - window + 1);
+  kt_lo = k_lo / bk;
+  kt_hi = k_hi > k_lo ? (k_hi + bk - 1) / bk : kt_lo;
+}
+
 // ---------------------------------------------------------------------------
-// prefill
+// prefill, fp32: CUDA cores
 // ---------------------------------------------------------------------------
 
 template <int D, int BQ, int BK>
@@ -96,14 +159,16 @@ struct PrefillSmem {
   static constexpr int C_OFF = L_OFF + BQ;
   // keep in step with repro_torch/kernels/autotile.py::attention_smem_bytes
   static constexpr int BYTES = 4 * (C_OFF + BQ);
+  static_assert(BYTES <= SMEM_LIMIT, "fp32 tile exceeds the shared memory");
 };
 
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(4 * BQ)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     int Hq, int Hkv, int Tq, int Tk, int causal, int window,
-                     float softcap, float scale, int offset) {
+flash_prefill_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int Hq, int Hkv, int Tq, int Tk, int causal,
+                         int window, float softcap, float scale, int offset) {
   using L = PrefillSmem<D, BQ, BK>;
   constexpr int NT = 4 * BQ;    // threads: 4 per q row
   constexpr int CJ = BK / 16;   // score columns per thread
@@ -122,10 +187,10 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (Hq / Hkv);
-  const T* qb = q + ((size_t)b * Hq + h) * (size_t)Tq * D;
-  const T* kb = k + ((size_t)b * Hkv + kvh) * (size_t)Tk * D;
-  const T* vb = v + ((size_t)b * Hkv + kvh) * (size_t)Tk * D;
-  T* ob = o + ((size_t)b * Hq + h) * (size_t)Tq * D;
+  const float* qb = q + ((size_t)b * Hq + h) * (size_t)Tq * D;
+  const float* kb = k + ((size_t)b * Hkv + kvh) * (size_t)Tk * D;
+  const float* vb = v + ((size_t)b * Hkv + kvh) * (size_t)Tk * D;
+  float* ob = o + ((size_t)b * Hq + h) * (size_t)Tq * D;
 
   for (int idx = tid * 4; idx < BQ * D; idx += NT * 4) {
     const int r = idx / D, c = idx % D;
@@ -136,14 +201,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (tid < BQ) { m_s[tid] = NEG_INF; l_s[tid] = 0.f; }
 
-  // kv positions any real row of this tile may attend to: [k_lo, k_hi)
-  const int qpos_first = q0 + offset;
-  const int qpos_last = min(q0 + BQ, Tq) - 1 + offset;
-  int k_lo = 0, k_hi = Tk;
-  if (causal) k_hi = min(k_hi, qpos_last + 1);
-  if (window > 0) k_lo = max(0, qpos_first - window + 1);
-  const int kt_lo = k_lo / BK;
-  const int kt_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : kt_lo;
+  int kt_lo, kt_hi;
+  kv_tile_range(q0, min(q0 + BQ, Tq), Tk, BK, causal, window, offset, kt_lo,
+                kt_hi);
 
   const int rg = tid / 16;   // micro-tile rows rg*4 .. rg*4+3
   const int cg = tid % 16;   // micro-tile columns cg, cg+16, ...
@@ -192,18 +252,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = rg * 4 + i;
-      const int qpos = q0 + r + offset;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const int c = cg + 16 * j;
-        const int kpos = k0 + c;
-        float x = cap_score(s[i][j] * scale, softcap);
-        bool keep = true;
-        if (causal) keep = kpos <= qpos;
-        if (window > 0) keep = keep && (kpos > qpos - window);
-        x = keep ? x : NEG_INF;
-        if (kpos >= Tk) x = -INFINITY;   // padding: exactly zero weight
-        Ss[r * L::SS + c] = x;
+        Ss[r * L::SS + c] = masked_score(s[i][j], q0 + r + offset, k0 + c, Tk,
+                                         causal, window, softcap, scale);
       }
     }
     __syncthreads();
@@ -264,60 +317,559 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l = (l == 0.f) ? 1.f : l;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      store1(ob + (size_t)(q0 + r) * D + cg + 16 * j, acc[i][j] / l);
+      ob[(size_t)(q0 + r) * D + cg + 16 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-cudaError_t launch_prefill(const void* q, const void* k, const void* v, void* o,
-                           int B, int Hq, int Hkv, int Tq, int Tk, int causal,
-                           int window, float softcap, float scale, int offset,
-                           cudaStream_t stream) {
+template <int D, int BQ, int BK>
+cudaError_t launch_prefill_f32(const void* q, const void* k, const void* v,
+                               void* o, int B, int Hq, int Hkv, int Tq, int Tk,
+                               int causal, int window, float softcap,
+                               float scale, int offset, cudaStream_t stream) {
   constexpr int bytes = PrefillSmem<D, BQ, BK>::BYTES;
-  auto kernel = flash_prefill_kernel<T, D, BQ, BK>;
+  auto kernel = flash_prefill_f32_kernel<D, BQ, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, 4 * BQ, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Tq, Tk, causal,
-      window, softcap, scale, offset);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq, Tk,
+      causal, window, softcap, scale, offset);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t prefill_tiles(int bq, int bk, const void* q, const void* k,
-                          const void* v, void* o, int B, int Hq, int Hkv,
-                          int Tq, int Tk, int causal, int window, float softcap,
-                          float scale, int offset, cudaStream_t st) {
-#define LEGO_PREFILL(BQ_, BK_)                                                \
-  if (bq == BQ_ && bk == BK_)                                                 \
-    return launch_prefill<T, D, BQ_, BK_>(q, k, v, o, B, Hq, Hkv, Tq, Tk,     \
-                                          causal, window, softcap, scale,     \
-                                          offset, st);
-  LEGO_PREFILL(16, 32) LEGO_PREFILL(16, 64)
-  LEGO_PREFILL(32, 32) LEGO_PREFILL(32, 64)
-  LEGO_PREFILL(64, 32) LEGO_PREFILL(64, 64)
+// ---------------------------------------------------------------------------
+// prefill, bf16: tensor cores (wgmma) fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int TC_STAGES = 2;      // K/V ring depth (autotile.ATTN_STAGES)
+
+constexpr int tc_swizzle_width(int D) {   // elements of one swizzled row
+  return D % 64 == 0 ? 64 : (D % 32 == 0 ? 32 : 16);
+}
+
+// Shared memory of one block.  Every tile is stored as D/W column blocks of
+// rows x W elements, W*2 bytes a row, in the copy engine's W*2-byte swizzle
+// (W = 64, 32 or 16 elements: the 128-, 64- or 32-byte swizzle), which is
+// the canonical layout wgmma reads: K-major for Q and K, MN-major for V.
+template <int D, int BQ, int BK>
+struct TcLayout {
+  static constexpr int W = tc_swizzle_width(D);
+  static constexpr int SWIZZLE_BYTES = 2 * W;
+  static constexpr int NWG = BQ / 64;                // consumer warpgroups
+  static constexpr int THREADS = NWG * 128 + 32;     // + one producer warp
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;        // one K or V tile
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + Q_BYTES;      // TC_STAGES K tiles
+  static constexpr int V_OFF = K_OFF + TC_STAGES * KV_BYTES;
+  // barriers: q_full, then k_full, v_full and empty for each stage
+  static constexpr int BAR_OFF = V_OFF + TC_STAGES * KV_BYTES;
+  // + 1024 bytes to align the base to the 128-byte swizzle's 1024-byte
+  // period; keep in step with autotile.py::attention_smem_bytes
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * TC_STAGES) + 1024;
+  static_assert(BYTES <= SMEM_LIMIT, "bf16 tile exceeds the shared memory");
+  static_assert(BQ % 64 == 0 && BK % 16 == 0 && D % 16 == 0, "tc tile");
+  static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "tc alignment");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B, 3: 32 B)
+template <int SWIZZLE_BYTES>
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  constexpr uint64_t layout =
+      SWIZZLE_BYTES == 128 ? 1 : (SWIZZLE_BYTES == 64 ? 2 : 3);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous wgmma that writes it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+#define LEGO_F8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),                 \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// S (64 x 64) += A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// S (64 x 128) += A (64 x 16, shared, K-major) * B (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24), LEGO_F8(32),
+        LEGO_F8(40), LEGO_F8(48), LEGO_F8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// O (64 x 16) += A (64 x 16, registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 96) += A (64 x 16, registers) * B (16 x 96, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24), LEGO_F8(32),
+        LEGO_F8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 128) += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24), LEGO_F8(32),
+        LEGO_F8(40), LEGO_F8(48), LEGO_F8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O (64 x 256) += A (64 x 16, registers) * B (16 x 256, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : LEGO_F8(0), LEGO_F8(8), LEGO_F8(16), LEGO_F8(24), LEGO_F8(32),
+        LEGO_F8(40), LEGO_F8(48), LEGO_F8(56), LEGO_F8(64), LEGO_F8(72),
+        LEGO_F8(80), LEGO_F8(88), LEGO_F8(96), LEGO_F8(104), LEGO_F8(112),
+        LEGO_F8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+#undef LEGO_F8
+
+template <int D, int BQ, int BK>
+__global__ void __launch_bounds__(TcLayout<D, BQ, BK>::THREADS, 1)
+flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Tq,
+                        int Tk, int causal, int window, float softcap,
+                        float scale, int offset) {
+  using L = TcLayout<D, BQ, BK>;
+  constexpr int W = L::W;
+  constexpr int ROW = 2 * W;        // bytes of one swizzled row
+  constexpr int SBO = 8 * ROW;      // 8-row groups
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base + L::Q_OFF;
+  const uint32_t bars = base + L::BAR_OFF;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + TC_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * TC_STAGES + s); };
+  auto k_s = [&](int s) { return base + L::K_OFF + s * L::KV_BYTES; };
+  auto v_s = [&](int s) { return base + L::V_OFF + s * L::KV_BYTES; };
+
+  // the causal tiles with the most kv tiles are launched first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+  int kt_lo, kt_hi;
+  kv_tile_range(q0, min(q0 + BQ, Tq), Tk, BK, causal, window, offset, kt_lo,
+                kt_hi);
+  const int n_tiles = kt_hi - kt_lo;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < TC_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), L::NWG * 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == L::NWG * 4) {
+    // producer: Q once, then K and V tile by tile through the ring
+    if (lane == 0) {
+      const int bh_q = b * Hq + h, bh_kv = b * Hkv + kvh;
+      mbar_expect_tx(q_full, L::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / W; ++c)
+        tma_load(q_s + c * BQ * ROW, &q_map, q_full, c * W, q0, bh_q);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % TC_STAGES;
+        const int k0 = (kt_lo + i) * BK;
+        mbar_wait(empty(s), ((i / TC_STAGES) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / W; ++c)
+          tma_load(k_s(s) + c * BK * ROW, &k_map, k_full(s), c * W, k0, bh_kv);
+        mbar_expect_tx(v_full(s), L::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / W; ++c)
+          tma_load(v_s(s) + c * BK * ROW, &v_map, v_full(s), c * W, k0, bh_kv);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread holds
+  // rows r and r + 8 of its warp's 16, at columns 8 j + 2 (lane % 4) + {0, 1}
+  const int wg = warp / 4;
+  const int row = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int qpos[2] = {row + offset, row + 8 + offset};
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % TC_STAGES;
+    const uint32_t parity = (i / TC_STAGES) & 1;
+    const int k0 = (kt_lo + i) * BK;
+
+    // S = Q K^T: D/16 steps of k16, K-major operands
+    float s_acc[BK / 2];
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) s_acc[j] = 0.f;
+    fence_regs(s_acc);
+    mbar_wait(k_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int c = kk * 16 / W, e = kk * 16 % W;
+      const uint64_t a = wgmma_desc<L::SWIZZLE_BYTES>(
+          q_s + c * BQ * ROW + 64 * wg * ROW + 2 * e, 16, SBO);
+      const uint64_t bd = wgmma_desc<L::SWIZZLE_BYTES>(
+          k_s(s) + c * BK * ROW + 2 * e, 16, SBO);
+      wgmma_ss(s_acc, a, bd, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s_acc);
+
+    // scale, softcap, masks and the online softmax on the registers
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int kpos = k0 + 8 * j + 2 * (lane % 4) + (x & 1);
+        float& sv = s_acc[4 * j + x];
+        sv = masked_score(sv, qpos[x >> 1], kpos, Tk, causal, window, softcap,
+                          scale);
+        mx[x >> 1] = fmaxf(mx[x >> 1], sv);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = __expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float p = __expf(s_acc[4 * j + x] - m[x >> 1]);
+        s_acc[4 * j + x] = p;
+        sum[x >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = corr[r] * l[r] + sum[r];
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) o_acc[4 * j + x] *= corr[x >> 1];
+
+    // P as bf16 A fragments: the accumulator layout of keys 16 kk .. + 15
+    // is the register-A layout of k step kk
+    uint32_t p_frag[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        p_frag[kk][x] = pack_bf16(s_acc[8 * kk + 2 * x],
+                                  s_acc[8 * kk + 2 * x + 1]);
+
+    // O += P V: BK/16 steps of k16, V MN-major (transposed descriptor):
+    // 8-key groups ROW * 8 apart, W-wide column blocks BK * ROW apart
+    fence_regs(o_acc);
+    mbar_wait(v_full(s), parity);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs(o_acc, p_frag[kk], wgmma_desc<L::SWIZZLE_BYTES>(
+                                      v_s(s) + kk * 16 * ROW, BK * ROW, SBO));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // epilogue: divide by l (l == 0 -> 1), round to bf16, store rows < Tq
+  __nv_bfloat16* ob = o + ((size_t)b * Hq + h) * (size_t)Tq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= Tq) continue;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    __nv_bfloat16* orow = ob + (size_t)(row + 8 * r) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(o_acc[4 * j + 2 * r] * inv,
+                                o_acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled (libcuda), looked up through the runtime's
+// entry-point query, so that nothing links against libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// a (D, T, BH) bf16 tensor (rows of D contiguous) read in boxes of W x rows
+// x 1; coordinates past T read as zero, so a box never crosses into the
+// next head
+bool encode_map(CUtensorMap* map, const void* ptr, int D, int T, int BH,
+                int W, int rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)W, (cuuint32_t)rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+              : (W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, int BQ, int BK>
+cudaError_t launch_prefill_tc(const void* q, const void* k, const void* v,
+                              void* o, int B, int Hq, int Hkv, int Tq, int Tk,
+                              int causal, int window, float softcap,
+                              float scale, int offset, cudaStream_t stream) {
+  using L = TcLayout<D, BQ, BK>;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(&q_map, q, D, Tq, B * Hq, L::W, BQ) ||
+      !encode_map(&k_map, k, D, Tk, B * Hkv, L::W, BK) ||
+      !encode_map(&v_map, v, D, Tk, B * Hkv, L::W, BK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_prefill_tc_kernel<D, BQ, BK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tq + BQ - 1) / BQ, Hq, B);
+  kernel<<<grid, L::THREADS, L::BYTES, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Tq, Tk,
+      causal, window, softcap, scale, offset);
+  return cudaGetLastError();
+}
+
+// one route per dtype: fp32 on the CUDA cores, bf16 on the tensor cores, at
+// the tiles of the generated lists; *kernel is set to the kernel launched
+// (0: flash_prefill_f32_kernel, 1: flash_prefill_tc_kernel)
+cudaError_t prefill_tiles(int dtype, int D, int bq, int bk, const void* q,
+                          const void* k, const void* v, void* o, int B, int Hq,
+                          int Hkv, int Tq, int Tk, int causal, int window,
+                          float softcap, float scale, int offset,
+                          cudaStream_t st, int* kernel) {
+#define LEGO_PREFILL(DTYPE_, LAUNCH_, D_, BQ_, BK_)                            \
+  if (dtype == DTYPE_ && D == D_ && bq == BQ_ && bk == BK_) {                 \
+    *kernel = DTYPE_;                                                         \
+    return LAUNCH_<D_, BQ_, BK_>(q, k, v, o, B, Hq, Hkv, Tq, Tk, causal,      \
+                                 window, softcap, scale, offset, st);         \
+  }
+#define LEGO_F32(D_, BQ_, BK_) LEGO_PREFILL(0, launch_prefill_f32, D_, BQ_, BK_)
+#define LEGO_BF16(D_, BQ_, BK_) LEGO_PREFILL(1, launch_prefill_tc, D_, BQ_, BK_)
+  LEGO_F32_TILES(LEGO_F32)
+  LEGO_BF16_TILES(LEGO_BF16)
+#undef LEGO_BF16
+#undef LEGO_F32
 #undef LEGO_PREFILL
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t prefill_dims(int D, int bq, int bk, const void* q, const void* k,
-                         const void* v, void* o, int B, int Hq, int Hkv, int Tq,
-                         int Tk, int causal, int window, float softcap,
-                         float scale, int offset, cudaStream_t st) {
-  switch (D) {
-    case 16: return prefill_tiles<T, 16>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    case 32: return prefill_tiles<T, 32>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    case 64: return prefill_tiles<T, 64>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    case 96: return prefill_tiles<T, 96>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    case 128: return prefill_tiles<T, 128>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    case 256: return prefill_tiles<T, 256>(bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk, causal, window, softcap, scale, offset, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // decode
@@ -507,9 +1059,11 @@ cudaError_t decode_dims(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+
 // ---------------------------------------------------------------------------
 // C interface (loaded with ctypes).  dtype: 0 = float32, 1 = bfloat16.
-// window <= 0 means no window, softcap <= 0 means no softcap.
+// window <= 0 means no window, softcap <= 0 means no softcap.  The prefill
+// writes the kernel it launched to *kernel (0: CUDA cores, 1: tensor cores).
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -517,16 +1071,11 @@ extern "C" {
 int lego_flash_prefill(const void* q, const void* k, const void* v, void* o,
                        int dtype, int B, int Hq, int Hkv, int Tq, int Tk, int D,
                        int bq, int bk, int causal, int window, float softcap,
-                       float scale, int offset, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return prefill_dims<float>(D, bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk,
-                               causal, window, softcap, scale, offset, st);
-  if (dtype == 1)
-    return prefill_dims<__nv_bfloat16>(D, bq, bk, q, k, v, o, B, Hq, Hkv, Tq,
-                                       Tk, causal, window, softcap, scale,
-                                       offset, st);
-  return cudaErrorInvalidValue;
+                       float scale, int offset, void* stream, int* kernel) {
+  *kernel = -1;
+  return prefill_tiles(dtype, D, bq, bk, q, k, v, o, B, Hq, Hkv, Tq, Tk,
+                       causal, window, softcap, scale, offset,
+                       static_cast<cudaStream_t>(stream), kernel);
 }
 
 int lego_flash_decode(const void* q, const void* k, const void* v, void* o,

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/lib<name>-<hash>.so`` inside the package (a directory that
-``.gitignore`` lists); the hash covers the source and the flags, so an edit
-never loads a stale library.  No PyTorch header is compiled, which keeps a
-build to seconds.  Nothing here runs at import time.
+``.gitignore`` lists); the hash covers the source, the flags and the header
+generated for it, so an edit never loads a stale library.  A source whose
+instantiations Python decides (``flash_attention``: the attention tiles of
+:mod:`repro_torch.kernels.autotile`) gets that header written beside its
+library and included before it (``-include``).  No PyTorch header is
+compiled, which keeps a build to seconds.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -44,9 +47,18 @@ def nvcc_path() -> str:
                        "with the card")
 
 
+def header(name: str) -> str:
+    """Text of the header generated for ``csrc/<name>.cu`` ("" if none)."""
+    if name == "flash_attention":
+        from .autotile import attention_tiles_header
+        return attention_tiles_header()
+    return ""
+
+
 def lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            + header(name).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -66,6 +78,11 @@ def build_all(names: list[str] | None = None) -> dict[str, str]:
     for n in todo:
         tmp = lib_path(n).with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")]
+        if header(n):
+            h = lib_path(n).with_suffix(".h")
+            h.with_suffix(f".{os.getpid()}.h").write_text(header(n))
+            os.replace(h.with_suffix(f".{os.getpid()}.h"), h)
+            cmd[1:1] = ["-include", str(h)]
         procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT,
                                           text=True))

@@ -7,9 +7,15 @@ GEMM, divided by the share of the grid that ragged edge tiles waste, and
 set fitting on chip.  What changes is the chip: the budget is one thread
 block's shared memory on an H100 (227 KB), counted as the CUDA kernels lay
 it out, and the candidates are only the tile shapes the kernels are built
-for (``GEMM_TILES``; for attention ``bq`` rows with four threads per row,
-so 4·bq threads, whole warps, and ``bk`` columns in steps of 16, each
-thread owning bk/16 score columns).
+for, by element size (``GEMM_TILES``, ``ATTN_TILES``).  Attention in fp32
+runs on the CUDA cores (``bq`` rows with four threads per row, ``bk``
+columns in steps of 16); in bf16 on the tensor cores (a warpgroup per 64
+q rows, ``bk`` keys per ``wgmma``, K and V through a ring of
+``ATTN_STAGES`` tiles), where a tile is built only if its layout fits the
+shared memory and its accumulators the registers a thread gets.  This
+module is where the attention tiles are decided: ``_build`` writes
+``attention_tiles_header()`` into the header that ``nvcc`` includes before
+``csrc/flash_attention.cu``, which instantiates exactly those tiles.
 """
 
 from __future__ import annotations
@@ -30,8 +36,17 @@ GEMM_TILES = {
 }
 GEMM_STAGES = 2
 
-BQ_CHOICES = (16, 32, 64)
-BK_CHOICES = (32, 64)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head_dims K2 is built for
+
+# (bq, bk) candidates of csrc/flash_attention.cu, by element size in
+# bytes: fp32 prefill on the CUDA cores (4·bq threads, bk/16 score columns
+# a thread), bf16 prefill on the tensor cores (bq/64 consumer warpgroups)
+ATTN_TILES = {
+    4: ((16, 32), (16, 64), (32, 32), (32, 64), (64, 32), (64, 64)),
+    2: ((64, 64), (64, 128), (128, 64), (128, 128)),
+}
+ATTN_STAGES = 2        # K/V ring depth of the tensor-core kernel
+ATTN_SPARE_REGS = 8    # registers a thread needs beside its accumulators
 
 
 @dataclass(frozen=True)
@@ -80,32 +95,92 @@ def gemm_tiles(M: int, N: int, K: int, dtype_bytes: int = 2,
     return best
 
 
-def attention_smem_bytes(bq: int, bk: int, D: int) -> int:
+def attention_smem_bytes(bq: int, bk: int, D: int, dtype_bytes: int) -> int:
     """Shared memory of one prefill block, as ``csrc/flash_attention.cu``
-    lays it out: fp32 Q (bq×(D+1)), K (bk×(D+1)), V (bk×D) and scores
-    (bq×(bk+1)) tiles plus three bq-long softmax state vectors.  Tiles are
-    staged in fp32 whatever the input dtype."""
-    return 4 * (bq * (D + 1) + bk * (D + 1) + bk * D + bq * (bk + 1) + 3 * bq)
+    lays it out.  fp32 (``PrefillSmem``): Q (bq×(D+1)), K (bk×(D+1)), V
+    (bk×D) and scores (bq×(bk+1)) tiles plus three bq-long softmax state
+    vectors.  bf16 (``TcLayout``): the Q tile and ``ATTN_STAGES`` K and V
+    tiles, the full/empty barriers (8 bytes each: one for Q, three a
+    stage), and 1024 bytes to align the base to the swizzle's period.  Each
+    layout's ``static_assert`` refuses to build a tile that this counts
+    below its size or that exceeds the card's limit."""
+    if dtype_bytes == 4:
+        return 4 * (bq * (D + 1) + bk * (D + 1) + bk * D + bq * (bk + 1)
+                    + 3 * bq)
+    if dtype_bytes == 2:
+        return (2 * (bq * D + 2 * ATTN_STAGES * bk * D)
+                + 8 * (1 + 3 * ATTN_STAGES) + 1024)
+    raise ValueError(f"no attention kernel built for {dtype_bytes}-byte "
+                     f"elements (built: {sorted(ATTN_TILES)})")
 
 
-def attention_tiles(Tq: int, Tk: int, D: int,
+def attention_acc_registers(bk: int, D: int) -> int:
+    """fp32 registers a consumer thread of the tensor-core kernel holds for
+    one warpgroup's 64 rows: the score tile (bk/2), the output (D/2) and P
+    as bf16 fragments (bk/4)."""
+    return bk // 2 + D // 2 + bk // 4
+
+
+def attention_register_limit(bq: int) -> int:
+    """Registers a thread of the tensor-core kernel gets: its block has
+    bq/64 consumer warpgroups and one producer warp, and each of the SM's
+    4 schedulers splits its 16,384 registers among its ceil(warps / 4)
+    warps, in steps of 8, at most 255 a thread (168 at bq = 128).  ptxas
+    agrees (``-Xptxas -v`` on the H100 machine): the bq = 128 instantiations
+    use 77 to 164 registers, the bq = 64 ones up to 198 (D = 256), with no
+    spills."""
+    warps = bq // 64 * 4 + 1
+    return min(255, 16384 // (32 * math.ceil(warps / 4)) // 8 * 8)
+
+
+def attention_built_tiles(D: int, dtype_bytes: int) -> tuple:
+    """The (bq, bk) that ``csrc/flash_attention.cu`` instantiates at
+    ``head_dim`` D for the element size: ``ATTN_TILES`` whose layout fits
+    the card's shared memory and, on the tensor cores, whose accumulators
+    and ``ATTN_SPARE_REGS`` fit the registers a thread gets."""
+    if dtype_bytes not in ATTN_TILES:
+        raise ValueError(f"no attention kernel built for {dtype_bytes}-byte "
+                         f"elements (built: {sorted(ATTN_TILES)})")
+    return tuple(
+        (bq, bk) for bq, bk in ATTN_TILES[dtype_bytes]
+        if attention_smem_bytes(bq, bk, D, dtype_bytes) <= SMEM_BYTES
+        and (dtype_bytes == 4
+             or attention_acc_registers(bk, D) + ATTN_SPARE_REGS
+             <= attention_register_limit(bq)))
+
+
+def attention_tiles(Tq: int, Tk: int, D: int, dtype_bytes: int,
                     smem_budget: int = SMEM_BYTES) -> tuple[int, int]:
-    """(bq, bk) for the prefill kernel: the largest-intensity pair whose
-    working set fits ``smem_budget``, with no tile wider than the problem
-    needs."""
+    """(bq, bk) for the prefill kernel of the element size: among its built
+    tiles, the largest-intensity pair whose working set fits
+    ``smem_budget``, with no tile wider than the problem needs (the
+    smallest built sides always qualify).  Raises if none fits."""
+    built = attention_built_tiles(D, dtype_bytes)
+    small_q = min(t[0] for t in ATTN_TILES[dtype_bytes])
+    small_k = min(t[1] for t in ATTN_TILES[dtype_bytes])
     best, best_ai = None, -1.0
-    for bq in BQ_CHOICES:
-        if bq > max(BQ_CHOICES[0], Tq):
+    for bq, bk in built:
+        if bq > max(small_q, Tq) or bk > max(small_k, Tk):
             continue
-        for bk in BK_CHOICES:
-            if bk > max(BK_CHOICES[0], Tk):
-                continue
-            if attention_smem_bytes(bq, bk, D) > smem_budget:
-                continue
-            ai = (bq * bk * D) / (bq * D + bk * D + bq * bk)
-            if ai > best_ai:
-                best_ai, best = ai, (bq, bk)
+        if attention_smem_bytes(bq, bk, D, dtype_bytes) > smem_budget:
+            continue
+        ai = (bq * bk * D) / (bq * D + bk * D + bq * bk)
+        if ai > best_ai:
+            best_ai, best = ai, (bq, bk)
     if best is None:
         raise ValueError(f"no attention tile fits {smem_budget} bytes "
-                         f"of shared memory at head_dim {D}")
+                         f"of shared memory at head_dim {D} and "
+                         f"{dtype_bytes}-byte elements")
     return best
+
+
+def attention_tiles_header() -> str:
+    """The header ``nvcc`` includes before ``csrc/flash_attention.cu``: for
+    each dtype an X-macro list of the (D, bq, bk) that
+    :func:`attention_built_tiles` gives at each of ``HEAD_DIMS``."""
+    def tiles(dtype_bytes):
+        return " ".join(f"X({D}, {bq}, {bk})" for D in HEAD_DIMS
+                        for bq, bk in attention_built_tiles(D, dtype_bytes))
+    return ("// written by repro_torch.kernels.autotile; do not edit\n"
+            f"#define LEGO_F32_TILES(X) {tiles(4)}\n"
+            f"#define LEGO_BF16_TILES(X) {tiles(2)}\n")

@@ -1,18 +1,24 @@
 """Kernel K2 on Hopper: the wrappers of ``csrc/flash_attention.cu``.
 
 Replaces ``repro.kernels.flash_attention`` (the Pallas ``_flash_kernel``,
-score-stationary fused attention of LEGO Fig. 10) with two hand-written
-CUDA kernels:
+score-stationary fused attention of LEGO Fig. 10) with hand-written CUDA
+kernels:
 
   * ``flash_attention_cuda`` — prefill: q (B, Hq, Tq, D) against k/v
     (B, Hkv, Tk, D), causal with an absolute ``offset``, sliding window,
-    softcap, GQA; ragged Tq/Tk are masked inside the kernel.
+    softcap, GQA; ragged Tq/Tk are masked inside the kernel.  One kernel
+    per dtype: bf16 on the tensor cores (``wgmma`` fed by TMA), fp32 on
+    the CUDA cores (``wgmma`` would take fp32 only as TF32); the tile
+    (bq, bk) must be one that the dtype's kernel builds
+    (``autotile.attention_built_tiles``).
   * ``decode_attention_cuda`` — one query token per head over a KV cache,
     at a position read from a 0-d int32 device tensor (no host sync).
 
 Each wrapper checks its inputs and raises on anything the kernel does not
 take, launches on the current stream, raises if the launch was refused,
-and counts its launches in ``<wrapper>.launches``.  The plain versions live
+and counts its launches in ``<wrapper>.launches``; the prefill also counts,
+in ``.tensor_core_launches``, those that the library reports to have gone
+to the tensor-core kernel.  The plain versions live
 in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops` picks
 between them by the tensors' device.
 """
@@ -24,17 +30,16 @@ import ctypes
 import torch
 
 from . import _build
-from .autotile import BK_CHOICES, BQ_CHOICES
+from .autotile import HEAD_DIMS, attention_built_tiles
 
-HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PROTOTYPES = {
     # q, k, v, o, dtype, B, Hq, Hkv, Tq, Tk, D, bq, bk, causal, window,
-    # softcap, scale, offset, stream
+    # softcap, scale, offset, stream, &kernel launched (1: tensor cores)
     "lego_flash_prefill": (_I, [_P, _P, _P, _P] + [_I] * 11
-                           + [_F, _F, _I, _P]),
+                           + [_F, _F, _I, _P, ctypes.POINTER(_I)]),
     # q, k, v, o, pos, dtype, B, Hq, Hkv, S, D, window, softcap, scale, stream
     "lego_flash_decode": (_I, [_P] * 5 + [_I] * 7 + [_F, _F, _P]),
     "lego_cuda_error_string": (ctypes.c_char_p, [_I]),
@@ -102,29 +107,35 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: float | None = None,
                          offset: int = 0) -> torch.Tensor:
     """Prefill attention on the card; tiles (bq, bk) from
-    :func:`repro_torch.kernels.autotile.attention_tiles`."""
+    :func:`repro_torch.kernels.autotile.attention_tiles`.  Counts its
+    launches in ``.launches`` and, of those, the ones the library reports
+    on the tensor-core kernel in ``.tensor_core_launches``."""
     _check(q, k, v)
-    if bq not in BQ_CHOICES or bk not in BK_CHOICES:
-        raise ValueError(f"tile ({bq}, {bk}) not built "
-                         f"(bq in {BQ_CHOICES}, bk in {BK_CHOICES})")
     B, Hq, Tq, D = q.shape
+    built = attention_built_tiles(D, q.element_size())
+    if (bq, bk) not in built:
+        raise ValueError(f"tile ({bq}, {bk}) not built for {q.dtype} at "
+                         f"head_dim {D} (built: {built})")
     _, Hkv, Tk, _ = k.shape
     win, cap = _window_softcap(window, softcap)
     scale = scale if scale is not None else D ** -0.5
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    kernel = _I()
     with torch.cuda.device(q.device):
         err = _lib().lego_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, Tq, Tk, D, bq, bk, int(causal), win,
-            cap, scale, offset, _stream(q))
+            cap, scale, offset, _stream(q), ctypes.byref(kernel))
     _raise_on(err, "flash prefill")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.tensor_core_launches += int(kernel.value == 1)
     return o
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tensor_core_launches = 0
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

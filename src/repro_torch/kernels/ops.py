@@ -42,7 +42,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     if q.device.type == "cpu":
         return R.attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale, offset=offset)
-    bq, bk = attention_tiles(q.shape[2], k.shape[2], q.shape[3])
+    bq, bk = attention_tiles(q.shape[2], k.shape[2], q.shape[3],
+                             q.element_size())
     return flash_attention_cuda(q, k, v, bq=bq, bk=bk, causal=causal,
                                 window=window, softcap=softcap, scale=scale,
                                 offset=offset)

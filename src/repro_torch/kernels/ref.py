@@ -69,6 +69,20 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return o.reshape(B, Hq, Tq, D).to(q.dtype)
 
 
+def attention_rel_err(got, q, k, v, **kw) -> float:
+    """How far a bf16 attention output ``got`` is from the plain version
+    computed in fp32 from the same inputs: the largest
+    |got - want| / (|want| + rms(want's row)).  Dividing by the row's rms
+    holds long rows, whose outputs average many values and are small, to
+    the same relative scale as short ones.  A kernel with the reference's
+    roundings (P and O to bf16) reads a few times 2^-8; one that drops a kv
+    tile or mis-weights rows reads tenths."""
+    want = attention_ref(q.float(), k.float(), v.float(), **kw)
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    den = (want.abs() + rms).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got.float() - want).abs() / den).max().item()
+
+
 def chunked_attention_ref(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,

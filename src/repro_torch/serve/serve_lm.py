@@ -1,14 +1,19 @@
 """Batched serving example of the port: prefill + greedy decode with KV
 caches or recurrent states, the twin of ``examples/serve_lm.py``.  Serves
-the reduced (smoke) config of a decoder LM the port runs (the dense LMs,
-RWKV-6, the Jamba hybrid, the MoE LMs or Phi-3-vision's decoder, without
-its image prefix, as the reference example serves it).  The
-encoder-decoder (whisper_base) has no ``generate``: it is refused here, as
-the reference example cannot serve it either.
+the reduced (smoke) config of a decoder LM the port runs, by default the
+Jamba hybrid as the reference example does (attention KV caches, Mamba
+conv/ssm states and MoE routing all on the decode path); also the dense
+LMs, RWKV-6, the MoE LMs or Phi-3-vision's decoder, without its image
+prefix, as the reference example serves it.  The encoder-decoder
+(whisper_base) has no ``generate``: it is refused here, as the reference
+example cannot serve it either.
 
-Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm \
-          --arch mistral_nemo_12b --batch 4 --new 24
-      (--arch rwkv6_7b, jamba_1_5_large_398b, deepseek_moe_16b,
+:func:`serve` takes the parameters and prompts and returns the tokens and
+the printed lines, so that the reference example's converted parameters
+and prompts can be served and its output compared line by line.
+
+Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm --batch 4 --new 24
+      (--arch rwkv6_7b, mistral_nemo_12b, deepseek_moe_16b,
        llama4_scout_17b_a16e or phi_3_vision_4_2b for the others)
       (add --device cpu to run the plain path on the CPU)
 """
@@ -20,13 +25,35 @@ import torch
 
 from ..configs import PORTED_IDS, get_config
 from ..models import transformer as TF
-from ..models.common import check_device
+from ..models.common import ModelConfig, check_device
 from .engine import generate
+
+
+def serve(params, cfg: ModelConfig, prompts: torch.Tensor,
+          new: int) -> tuple[torch.Tensor, list[str]]:
+    """Greedy generation of ``new`` tokens after ``prompts`` (B, Tp) int32,
+    timed; returns the tokens (B, Tp + new) and the lines the reference
+    example prints (arch, throughput, sample token ids)."""
+    device = prompts.device
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, max_new=new)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU")
+    batch, prompt_len = prompts.shape
+    toks = batch * new
+    lines = [f"arch={cfg.name} batch={batch} prompt={prompt_len} new={new}",
+             f"generated {toks} tokens in {dt:.3f}s "
+             f"({toks / dt:.1f} tok/s on {where}, first call included)",
+             f"sample token ids: {out[0, -new:].tolist()[:12]} ..."]
+    return out, lines
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mistral_nemo_12b",
+    ap.add_argument("--arch", default="jamba_1_5_large_398b",
                     help=f"one of {', '.join(PORTED_IDS)}")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -49,19 +76,9 @@ def main(argv=None):
     params = TF.init_params(cfg, gen, device)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, dtype=torch.int32, device=device)
-    t0 = time.perf_counter()
-    out = generate(params, cfg, prompts, max_new=args.new)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
-    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "CPU")
-    toks = args.batch * args.new
-    print(f"arch={cfg.name} batch={args.batch} "
-          f"prompt={args.prompt_len} new={args.new}")
-    print(f"generated {toks} tokens in {dt:.3f}s "
-          f"({toks / dt:.1f} tok/s on {where}, first call included)")
-    print("sample token ids:", out[0, -args.new:].tolist()[:12], "...")
+    out, lines = serve(params, cfg, prompts, args.new)
+    for line in lines:
+        print(line)
     return out
 
 

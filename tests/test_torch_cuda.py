@@ -9,7 +9,9 @@ Tolerances as in tests/test_kernels.py: fp32 1e-5 (the GEMM, relative to
 the output's largest magnitude: the kernel and cuBLAS sum K products in
 other orders), 2e-4 (attention) and 1e-4 (the RWKV-6 and Mamba scans),
 bf16 2e-2 (the GEMM) and 3e-2; the Mamba scan's bf16 y is rounded once
-from fp32 on both sides, so it is held to one bf16 ulp (2^-7 relative)."""
+from fp32 on both sides, so it is held to one bf16 ulp (2^-7 relative).
+The bf16 attention prefill is also held to three bf16 ulps of the plain
+version computed in fp32, relative to |want| plus its row's rms."""
 
 import dataclasses
 
@@ -19,7 +21,7 @@ import torch
 from repro_torch.configs import PORTED_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.autotile import BK_CHOICES, BQ_CHOICES, GEMM_TILES
+from repro_torch.kernels.autotile import GEMM_TILES, attention_built_tiles
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
@@ -33,6 +35,10 @@ from repro_torch.serve.engine import build_serve_step, generate
 pytestmark = pytest.mark.cuda
 
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# bf16 K2 prefill against the plain version in fp32 from the same inputs,
+# relative to |want| plus the row's rms (ref.attention_rel_err), as
+# chip_smoke.py holds it: three bf16 ulps
+BF16_REL_TOL = 3 * 2.0 ** -7
 
 
 @pytest.fixture
@@ -50,6 +56,14 @@ def _rand(gen, shape, dtype, dev):
 def _assert_close(got, want, tol):
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _assert_rel(got, q, k, v, **kw):
+    """bf16: within BF16_REL_TOL of the fp32 plain version (fp32: nothing
+    beyond the 2e-4 gate)."""
+    if got.dtype == torch.bfloat16:
+        err = R.attention_rel_err(got, q, k, v, **kw)
+        assert err <= BF16_REL_TOL, f"rel_err {err:.3e} > {BF16_REL_TOL:g}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -73,19 +87,111 @@ def test_prefill_kernel_matches_plain(card, dtype, Hq, Hkv, Tq, Tk, D, causal,
     _assert_close(got, R.attention_ref(q, k, v, **kw), TOLS[dtype])
 
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("bq", BQ_CHOICES)
-@pytest.mark.parametrize("bk", BK_CHOICES)
-def test_every_built_tile_matches_plain(card, D, bq, bk):
+# every instantiation: each dtype's own built tiles at each head_dim (bf16
+# on the tensor cores, fp32 on the CUDA cores)
+BUILT = [(dtype, D, bq, bk) for dtype in TOLS for D in HEAD_DIMS
+         for bq, bk in attention_built_tiles(D, dtype.itemsize)]
+
+
+@pytest.mark.parametrize("dtype,D,bq,bk", BUILT)
+def test_every_built_tile_matches_plain(card, dtype, D, bq, bk):
     gen = torch.Generator(card).manual_seed(4)
-    for dtype, tol in TOLS.items():
-        q = _rand(gen, (2, 4, 150, D), dtype, card)
-        k = _rand(gen, (2, 2, 150, D), dtype, card)
-        v = _rand(gen, (2, 2, 150, D), dtype, card)
-        got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, window=40,
-                                   softcap=30.0)
-        _assert_close(got, R.attention_ref(q, k, v, window=40, softcap=30.0),
-                      tol)
+    q = _rand(gen, (2, 4, 150, D), dtype, card)
+    k = _rand(gen, (2, 2, 150, D), dtype, card)
+    v = _rand(gen, (2, 2, 150, D), dtype, card)
+    got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, window=40, softcap=30.0)
+    _assert_close(got, R.attention_ref(q, k, v, window=40, softcap=30.0),
+                  TOLS[dtype])
+    _assert_rel(got, q, k, v, window=40, softcap=30.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,window,softcap,offset", [
+    # ragged Tq and Tk with B*H > 1: a tile past T must read no row of the
+    # next head and write none
+    (2, 4, 2, 77, 150, 64, False, None, None, 0),
+    (3, 4, 4, 33, 333, 96, True, None, None, 300),
+    (4, 8, 8, 1, 1500, 64, False, None, None, 0),     # Whisper's cross step
+    (1, 8, 2, 64, 512, 128, True, 256, None, 448),    # offset with a window
+    (1, 4, 1, 100, 612, 128, True, 40, None, 512),
+    (2, 4, 4, 130, 130, 64, True, None, None, 0),     # GQA group 1
+    (2, 16, 4, 130, 130, 64, True, None, None, 0),    # group 4
+    (1, 32, 1, 130, 130, 32, True, None, None, 0),    # group 32
+    (2, 8, 4, 200, 200, 256, True, None, 50.0, 0),    # softcap at D = 256
+    (1, 4, 2, 77, 130, 256, False, 30, 30.0, 0),
+])
+def test_prefill_kernel_ragged_heads_and_edges(card, dtype, B, Hq, Hkv, Tq,
+                                               Tk, D, causal, window,
+                                               softcap, offset):
+    """Every (batch, head) output of the dtype's kernel, at every tile it
+    builds, against the plain version."""
+    gen = torch.Generator(card).manual_seed(11)
+    q = _rand(gen, (B, Hq, Tq, D), dtype, card)
+    k = _rand(gen, (B, Hkv, Tk, D), dtype, card)
+    v = _rand(gen, (B, Hkv, Tk, D), dtype, card)
+    kw = dict(causal=causal, window=window, softcap=softcap, offset=offset)
+    want = R.attention_ref(q, k, v, **kw)
+    for bq, bk in attention_built_tiles(D, dtype.itemsize):
+        got = flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
+        torch.cuda.synchronize()
+        for b in range(B):
+            for h in range(Hq):
+                torch.testing.assert_close(
+                    got[b, h].float(), want[b, h].float(), rtol=TOLS[dtype],
+                    atol=TOLS[dtype], msg=lambda m: f"tile ({bq}, {bk}) "
+                    f"b={b} h={h}: {m}")
+        _assert_rel(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", [
+    (1, 32, 8, 2048, 2048, 128, True),     # Mistral-NeMo
+    (1, 32, 32, 2048, 2048, 96, True),     # Phi-3-vision
+    (4, 8, 8, 1500, 1500, 64, False),      # Whisper's encoder
+    (4, 8, 8, 1, 1500, 64, False),         # Whisper's cross step
+])
+def test_bf16_prefill_holds_to_fp32_plain_at_main_path_shapes(
+        card, B, Hq, Hkv, Tq, Tk, D, causal):
+    """At the shapes the models run, where long rows average many keys and
+    their outputs are small, the 3e-2 gate is loose; the row-relative one
+    is not."""
+    gen = torch.Generator(card).manual_seed(7)
+    q = _rand(gen, (B, Hq, Tq, D), torch.bfloat16, card)
+    k = _rand(gen, (B, Hkv, Tk, D), torch.bfloat16, card)
+    v = _rand(gen, (B, Hkv, Tk, D), torch.bfloat16, card)
+    got = ops.flash_attention(q, k, v, causal=causal)
+    _assert_close(got, R.attention_ref(q, k, v, causal=causal),
+                  TOLS[torch.bfloat16])
+    _assert_rel(got, q, k, v, causal=causal)
+
+
+def test_prefill_wrapper_refuses_unbuilt_tiles(card):
+    """A tile that the dtype's kernel does not build is refused before any
+    launch: the fp32 tiles in bf16, the bf16 tiles in fp32, and the bf16
+    tiles that do not fit at head_dim 256 (shared memory or registers)."""
+    before = flash_attention_cuda.launches
+    for dtype, D, bq, bk in ((torch.bfloat16, 64, 16, 32),
+                             (torch.bfloat16, 64, 64, 32),
+                             (torch.float32, 64, 128, 128),
+                             (torch.bfloat16, 256, 128, 128),
+                             (torch.bfloat16, 256, 128, 64),
+                             (torch.bfloat16, 256, 64, 128)):
+        q = torch.zeros((1, 2, 8, D), device=card, dtype=dtype)
+        with pytest.raises(ValueError, match="not built"):
+            flash_attention_cuda(q, q, q, bq=bq, bk=bk)
+    assert flash_attention_cuda.launches == before
+
+
+def test_bf16_prefill_takes_the_tensor_core_kernel(card):
+    """The library reports the kernel it launched: the tensor-core one for
+    bf16, the CUDA-core one for fp32."""
+    q = torch.zeros((1, 2, 8, 64), device=card, dtype=torch.bfloat16)
+    before = (flash_attention_cuda.launches,
+              flash_attention_cuda.tensor_core_launches)
+    ops.flash_attention(q, q, q)
+    ops.flash_attention(q.float(), q.float(), q.float())
+    assert (flash_attention_cuda.launches,
+            flash_attention_cuda.tensor_core_launches) == \
+        (before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

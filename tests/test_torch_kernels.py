@@ -174,6 +174,28 @@ def test_attention_ref_bf16():
     _close(out, JR.attention_ref(*j, causal=True), BF16_TOL)
 
 
+def test_attention_rel_err_admits_the_reference_kernel_and_no_fault():
+    """The yardstick of the bf16 prefill (ref.attention_rel_err, held to
+    three bf16 ulps on the card): the reference's own bf16 Pallas kernel
+    reads under it; an output with one kv tile of twelve skipped, or with
+    the later rows 10% off, reads far over it.  The 3e-2 gate passes the
+    latter: over 1536 keys the outputs are about 0.04."""
+    j, t = _both(_case(1, 2, 2, 256, 1536, 64, seed=9), "bfloat16")
+    got = torch.from_numpy(np.asarray(
+        flash_attention_pallas(*j, bq=128, bk=128, causal=False,
+                               interpret=True), np.float32)).bfloat16()
+    tol = 3 * 2.0 ** -7
+    assert TR.attention_rel_err(got, *t, causal=False) <= tol
+    q, k, v = t
+    keep = torch.cat([torch.arange(0, 640), torch.arange(768, 1536)])
+    skipped = TR.attention_ref(q, k[:, :, keep], v[:, :, keep], causal=False)
+    assert TR.attention_rel_err(skipped, *t, causal=False) > 4 * tol
+    late = got.clone()
+    late[:, :, 128:] *= 1.1
+    assert TR.attention_rel_err(late, *t, causal=False) > 2 * tol
+    _close(late, JR.attention_ref(*j, causal=False), BF16_TOL)
+
+
 @pytest.mark.parametrize("window", [None, 16])
 @pytest.mark.parametrize("softcap", [None, 30.0])
 def test_chunked_attention_ref(window, softcap):
@@ -234,24 +256,95 @@ def test_ops_decode_cpu_vs_reference_ops():
 # tiles and the no-fallback contract
 # ---------------------------------------------------------------------------
 
+# the fp32 tiles chosen before the tensor-core kernel, by (Tq, Tk): the
+# fp32 kernel and its choice are unchanged
+_F32_TILES = {(1, 1): (16, 32), (8, 40): (16, 32), (2048, 2048): (64, 64),
+              (4608, 4608): (64, 64)}
+
+
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("Tq,Tk", [(1, 1), (8, 40), (2048, 2048),
                                    (4608, 4608)])
-def test_attention_tiles_fit_shared_memory(D, Tq, Tk):
-    bq, bk = autotile.attention_tiles(Tq, Tk, D)
-    assert bq in autotile.BQ_CHOICES and bk in autotile.BK_CHOICES
-    assert autotile.attention_smem_bytes(bq, bk, D) <= autotile.SMEM_BYTES
-    if Tq >= 64 and Tk >= 64:
-        assert (bq, bk) == (64, 64)   # the largest tiles fit even at D=256
-    if Tq <= 16:
-        assert bq == 16
+def test_attention_tiles_fit_shared_memory(D, Tq, Tk, dtype_bytes):
+    bq, bk = autotile.attention_tiles(Tq, Tk, D, dtype_bytes)
+    assert (bq, bk) in autotile.ATTN_TILES[dtype_bytes]
+    assert (bq, bk) in autotile.attention_built_tiles(D, dtype_bytes)
+    assert autotile.attention_smem_bytes(bq, bk, D, dtype_bytes) \
+        <= autotile.SMEM_BYTES == 227 * 1024
+    if dtype_bytes == 4:
+        assert (bq, bk) == _F32_TILES[(Tq, Tk)]
+    else:
+        # a warpgroup per 64 q rows, bk keys a wgmma
+        assert bq % 64 == 0 and bk in (64, 128)
+        assert autotile.attention_acc_registers(bk, D) \
+            + autotile.ATTN_SPARE_REGS <= autotile.attention_register_limit(bq)
+        if Tq >= 128 and Tk >= 128:
+            assert (bq, bk) == ((64, 64) if D == 256 else (128, 128))
+        if Tq <= 64:
+            assert bq == 64
+
+
+def test_attention_tc_layout_matches_the_kernel():
+    """The bf16 block's shared memory as TcLayout lays it out (its
+    static_assert refuses a tile that exceeds the card's): the Q tile,
+    two stages of K and V, seven barriers and the 1024-byte alignment; the
+    registers a thread gets (255 beside one consumer warpgroup, 168 beside
+    two); at D = 256 only (64, 64) fits both (with bk = 128 the K/V stages
+    exceed 227 KB, with two warpgroups the 64x256 fp32 output and the score
+    tile exceed 168 registers a thread)."""
+    assert autotile.attention_smem_bytes(128, 128, 128, 2) == \
+        2 * (128 * 128 + 4 * 128 * 128) + 8 * 7 + 1024
+    assert autotile.attention_register_limit(64) == 255
+    assert autotile.attention_register_limit(128) == 168
+    assert autotile.attention_built_tiles(256, 2) == ((64, 64),)
+    for D in (16, 32, 64, 96, 128):
+        assert autotile.attention_built_tiles(D, 2) == autotile.ATTN_TILES[2]
+    assert autotile.attention_built_tiles(128, 4) == autotile.ATTN_TILES[4]
+    with pytest.raises(ValueError, match="8-byte"):
+        autotile.attention_built_tiles(64, 8)
+
+
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+def test_attention_tiles_are_always_built(dtype_bytes):
+    """Over a grid of (Tq, Tk, D), attention_tiles returns only a tile that
+    its dtype's kernel builds (the wrapper refuses any other)."""
+    for D in HEAD_DIMS:
+        built = autotile.attention_built_tiles(D, dtype_bytes)
+        assert built
+        for Tq in (1, 7, 16, 33, 64, 100, 128, 150, 1500, 2048, 4224):
+            for Tk in (1, 40, 64, 77, 128, 333, 1500, 4096):
+                assert autotile.attention_tiles(Tq, Tk, D, dtype_bytes) \
+                    in built
 
 
 def test_attention_tiles_respect_budget():
     with pytest.raises(ValueError):
-        autotile.attention_tiles(64, 64, 256, smem_budget=1024)
-    bq, bk = autotile.attention_tiles(64, 64, 256, smem_budget=100 * 1024)
-    assert autotile.attention_smem_bytes(bq, bk, 256) <= 100 * 1024
+        autotile.attention_tiles(64, 64, 256, 4, smem_budget=1024)
+    bq, bk = autotile.attention_tiles(64, 64, 256, 4,
+                                      smem_budget=100 * 1024)
+    assert autotile.attention_smem_bytes(bq, bk, 256, 4) <= 100 * 1024
+
+
+def test_attention_tiles_header_lists_the_built_tiles():
+    """The kernel source instantiates what the generated header lists, and
+    the header lists exactly attention_built_tiles at each head_dim: the
+    tiles are decided in one place."""
+    import re
+
+    from repro_torch.kernels import _build
+    text = _build.header("flash_attention")
+    for macro, dtype_bytes in (("LEGO_F32_TILES", 4), ("LEGO_BF16_TILES", 2)):
+        line = next(ln for ln in text.splitlines()
+                    if ln.startswith(f"#define {macro}(X)"))
+        listed = [tuple(map(int, t)) for t in
+                  re.findall(r"X\((\d+), (\d+), (\d+)\)", line)]
+        assert listed == [(D, bq, bk) for D in HEAD_DIMS for bq, bk in
+                          autotile.attention_built_tiles(D, dtype_bytes)]
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    assert "LEGO_F32_TILES(LEGO_F32)" in src
+    assert "LEGO_BF16_TILES(LEGO_BF16)" in src
+    assert _build.header("gemm") == ""
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

@@ -618,10 +618,45 @@ def test_convert_rejects_mismatched_tree():
 
 
 def test_serve_lm_twin_runs_on_cpu(capsys):
+    """With no --arch the twin serves Jamba, as examples/serve_lm.py does."""
     out = serve_lm.main(["--device", "cpu", "--batch", "2",
                          "--prompt-len", "3", "--new", "2"])
     assert out.shape == (2, 5)
-    assert "tok/s on CPU" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "tok/s on CPU" in printed
+    jamba = get_config("jamba_1_5_large_398b", reduced=True).name
+    assert printed.startswith(f"arch={jamba} ")
+
+
+def test_serve_lm_twin_prints_the_reference_examples_tokens():
+    """examples/serve_lm.py at its defaults (Jamba smoke config in bf16,
+    batch 4, prompt 16, 24 new tokens, parameters from PRNGKey(0), prompts
+    from PRNGKey(1)): the twin, given the same parameters converted and the
+    same prompts, prints the same sample token ids as the reference's
+    compiled ``generate``, which the example prints.  Every token of every
+    row is held against the reference run op by op (``jax.disable_jit``):
+    the compiled step keeps fp32 excess precision inside its fusions, and
+    at these inputs a bf16 router near-tie flips a later token (past the
+    printed 12) against its own op-by-op run."""
+    arch, B, Tp, new = "jamba_1_5_large_398b", 4, 16, 24
+    jcfg = jax_get_config(arch, reduced=True)
+    jparams = JTF.init_params(jcfg, jax.random.PRNGKey(0))
+    jprompts = jax.random.randint(jax.random.PRNGKey(1), (B, Tp), 0,
+                                  jcfg.vocab_size)
+    printed = np.asarray(jengine.generate(jparams, jcfg, jprompts,
+                                          max_new=new))
+    with jax.disable_jit():
+        op_by_op = np.asarray(jengine.generate(jparams, jcfg, jprompts,
+                                               max_new=new))
+    tcfg = get_config(arch, reduced=True)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    prompts = torch.from_numpy(np.array(jprompts, np.int32))
+    out, lines = serve_lm.serve(tparams, tcfg, prompts, new)
+    assert lines[0] == f"arch={tcfg.name} batch={B} prompt={Tp} new={new}"
+    assert lines[-1] == (f"sample token ids: "
+                         f"{printed[0, -new:].tolist()[:12]} ...")
+    np.testing.assert_array_equal(out.numpy(), op_by_op)
 
 
 def test_serve_lm_twin_runs_rwkv_on_cpu(capsys):
