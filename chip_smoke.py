@@ -16,7 +16,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    CUDA cores), and ragged multi-head, Tq = 1, offset + window, GQA group
    1 / 4 / 32 and softcap at head_dim 256 cases at each built tile, head
    by head, every bf16 prefill also against the plain version in fp32
-   relative to the output's row scale; the RWKV-6 recurrence
+   relative to the output's row scale; K2 decode (split across blocks)
+   at GQA groups 1 / 2 / 4 / 8, S = 4096 and 4097, pos at 0, 100, the
+   chunk edges, S/2 and S - 1, windows and softcap, and Gemma-2's 4096
+   window over 8192 positions, bf16 also against the fp32 plain version;
+   the RWKV-6 recurrence
    over dtype / head size / (B, H) / ragged T; the Mamba selective scan over
    dtype / state size / (Bt, L, Dm);
 4. the main paths, in bf16 with random weights from a seeded generator, the
@@ -25,6 +29,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    a launch of the tensor-core kernel):
    a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
       2048-token prompt and ``generate`` (batch 4, prompt 16, 24 new);
+      then decode steps at batch 4 over a 4096-position cache (every K2
+      decode call split), on the host clock and, for one step, its
+      device-busy time and K2 decode's part of it from ``torch.profiler``;
    b. RWKV-6 7B at full width and depth — the same two runs (``forward``
       through the wkv kernel once per layer, ``generate`` through the plain
       recurrence step, as in the reference);
@@ -54,7 +61,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    with the card's clock, power and temperature logged before and after;
    K1 also at 512^3 fp32, K2 prefill also at Phi-3-vision's, Whisper's
    encoder and Whisper's cross-attention step shapes, with every built
-   tile's time at each and the output also held to the fp32 plain version.
+   tile's time at each and the output also held to the fp32 plain version;
+   K2 decode at Mistral-NeMo's, Phi-3-vision's, Jamba's, Gemma-2's
+   (window 4096 over 8192) and phase 4's (40 positions) shapes, the kernel
+   and SDPA timed as CUDA graphs (the eager calls are paced by the host).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -134,8 +144,9 @@ def check_close(name, got, want, tol, quiet=False) -> float:
 
 
 def check_rel(name, got, q, k, v, kw, quiet=False) -> float:
-    """A bf16 K2 prefill output within ``BF16_REL_TOL`` of the plain version
-    computed in fp32 (``ref.attention_rel_err``); returns the reading."""
+    """A bf16 K2 output (prefill, or decode as Tq = 1 at offset pos) within
+    ``BF16_REL_TOL`` of the plain version computed in fp32
+    (``ref.attention_rel_err``); returns the reading."""
     from repro_torch.kernels import ref as R
     err = R.attention_rel_err(got, q, k, v, **kw)
     if not quiet or err > BF16_REL_TOL:
@@ -165,23 +176,39 @@ def check_scaled(name, got, want, tol) -> float:
     return err
 
 
-def time_ms(fn, reps: int = 20, warm_s: float = 0.1) -> float:
+def time_ms(fn, reps: int = 20, warm_s: float = 0.1,
+            graph: bool = False) -> float:
     """Mean ms of ``fn`` over ``reps`` calls between CUDA events, after at
-    least 3 calls and ``warm_s`` seconds of them (the clocks settle)."""
+    least 3 calls and ``warm_s`` seconds of them (the clocks settle).  With
+    ``graph`` the ``reps`` calls are captured once in a CUDA graph and 5
+    replays are timed: the device's time per call, where an eager call
+    that the host issues slower than the card runs it is timed at the
+    host's pace."""
     import torch
     t0, n = time.perf_counter(), 0
     while n < 3 or time.perf_counter() - t0 < warm_s:
         fn()
         torch.cuda.synchronize()
         n += 1
+    run, runs, calls = fn, reps, reps
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        run, runs, calls = g.replay, 5, 5 * reps
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < warm_s:
+            g.replay()
+            torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(runs):
+        run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / calls
 
 
 def on_tensor_cores(n: int) -> str:
@@ -374,20 +401,45 @@ def main() -> int:
                 f"{autotile.attention_built_tiles(D, q.element_size())}"
                 + (f", rel_err at most {max(rel):.3e} (tol "
                    f"{BF16_REL_TOL:g})" if rel else ""))
-        for (Hq, Hkv, D) in ((32, 8, 128), (16, 8, 256), (32, 32, 96)):
-            S = 4096
+        # K2 decode, split across blocks: GQA groups 4 / 2 / 1 / 8
+        # (Mistral-NeMo, Gemma-2, Phi-3-vision, Jamba), S whole and ragged
+        # (4097: a last chunk of one row), pos at 0, 100, the chunk edges
+        # L - 1 and L, S/2 and S - 1, windows that leave whole chunks out
+        # or cross an edge, softcap; and Gemma-2's 4096 window over 8192
+        # positions; bf16 also against the fp32 plain version
+        dec_cases = [(heads, S, window, cap)
+                     for heads in ((32, 8, 128), (16, 8, 256), (32, 32, 96),
+                                   (64, 8, 128))
+                     for S in (4096, 4097)
+                     for window, cap in ((None, None), (16, 50.0),
+                                         (1000, None))]
+        dec_cases.append(((16, 8, 256), 8192, 4096, 50.0))
+        for (Hq, Hkv, D), S, window, cap in dec_cases:
             q = rand(4, Hq, 1, D, dtype=dtype)
             k, v = rand(4, Hkv, S, D, dtype=dtype), rand(4, Hkv, S, D,
                                                          dtype=dtype)
-            for window, cap in ((None, None), (16, 50.0), (1000, None)):
-                for pos in (0, 100, S - 1):
-                    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
-                    kw = dict(window=window, softcap=cap)
-                    got = ops.decode_attention(q, k, v, pos=pos_t, **kw)
-                    check_close(f"decode {tag} H=({Hq},{Hkv}) D={D} S={S} "
-                                f"pos={pos} window={window} softcap={cap}",
-                                got, R.decode_attention_ref(q, k, v, pos=pos,
-                                                            **kw), tol)
+            L, splits = autotile.decode_splits(4, Hkv, Hq // Hkv, S, D,
+                                               q.element_size())
+            name = (f"decode {tag} H=({Hq},{Hkv}) D={D} S={S} "
+                    f"window={window} softcap={cap} chunk={L} "
+                    f"splits={splits}")
+            errs, rel = [], []
+            for pos in sorted({0, 100, L - 1, L, S // 2, S - 1}):
+                pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+                kw = dict(window=window, softcap=cap)
+                got = ops.decode_attention(q, k, v, pos=pos_t, **kw)
+                errs.append(check_close(
+                    f"{name} pos={pos}", got,
+                    R.decode_attention_ref(q, k, v, pos=pos, **kw), tol,
+                    quiet=True))
+                if dtype == torch.bfloat16:
+                    rel.append(check_rel(
+                        f"{name} pos={pos}", got, q, k, v,
+                        dict(causal=True, offset=pos, **kw), quiet=True))
+            log(f"  {name}: pos 0, 100, L-1, L, S/2, S-1 within {tol:g}, "
+                f"max_abs_err {max(errs):.3e}"
+                + (f", rel_err at most {max(rel):.3e} (tol "
+                   f"{BF16_REL_TOL:g})" if rel else ""))
     # the RWKV-6 recurrence: o at the dtype's tolerance; S_last is fp32 from
     # the same rounded inputs on both sides, so it is held at the scan's
     for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, BF16_TOL)):
@@ -426,6 +478,7 @@ def main() -> int:
         for c in counters:
             c.launches = 0
         flash_attention_cuda.tensor_core_launches = 0
+        decode_attention_cuda.split_launches = 0
 
     def launches():
         """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
@@ -433,7 +486,9 @@ def main() -> int:
         return tuple(c.launches for c in counters)
 
     # a. Mistral-NeMo-12B: K2 prefill once per layer in forward, K2 decode
-    #    once per layer and step in generate
+    #    once per layer and step in generate (one split: the cache holds
+    #    40 positions); then decode steps over a 4096-position cache, where
+    #    every K2 decode call splits
     cfg = get_config("mistral_nemo_12b")
     L = cfg.n_layers
     log(f"phase 4a main path: {cfg.name} d_model={cfg.d_model} "
@@ -442,7 +497,9 @@ def main() -> int:
         f"dtype={cfg.dtype}")
     fwd_launches, gen_launches = _serve(
         cfg, 0, dev, gen, reset, launches, want_fwd=(L, 0, 0, 0, 0),
-        want_gen=lambda steps: (0, L * steps, 0, 0, 0))
+        want_gen=lambda steps: (0, L * steps, 0, 0, 0),
+        then=lambda params: _long_cache(cfg, params, dev, gen, reset,
+                                        launches))
 
     # b. RWKV-6 7B: K4 once per layer in forward; generate runs the plain
     #    recurrence step (as the reference does) and launches no kernel
@@ -708,22 +765,60 @@ def main() -> int:
         if tag == "Mistral-NeMo":
             kernels.append(row)
         del q, k, v
-    S, Bd = 4096, 4
-    q = rand(Bd, Hq, 1, D, dtype=bf)
-    k, v = rand(Bd, Hkv, S, D, dtype=bf), rand(Bd, Hkv, S, D, dtype=bf)
-    pos = torch.tensor(S - 1, dtype=torch.int32, device=dev)
-    kern = lambda: decode_attention_cuda(q, k, v, pos)
-    plain = lambda: R.decode_attention_ref(q, k, v, pos=pos)
-    lib = _sdpa(q, k, v, causal=False)
-    err = check_close("decode at the main path's shape", kern(), plain(),
-                      BF16_TOL)
-    flops = 4 * Bd * Hq * D * S
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    kernels.append(_row("flash_attention_decode", gen_launches[1], err, kern,
-                        plain, lib, b_ms, b_by,
-                        f"B={Bd} Hq={Hq} Hkv={Hkv} cache={S} D={D} "
-                        f"pos={S - 1}", **FLASH))
+    # K2 decode (split across blocks) in bf16 at the main paths' decode
+    # shapes, batch 4: Mistral-NeMo over 4096 positions (the row),
+    # Phi-3-vision, Jamba's attention layer, Gemma-2's 4096 window over 8192
+    # positions (half the splits empty; timed without its softcap, which
+    # SDPA does not take) and phase 4's 40-position cache.  The eager call
+    # is bound by the host's launch cost, so the kernel and SDPA (over the
+    # keys the mask keeps) are also timed as CUDA graphs of 20 calls: the
+    # device's time, which the row reports.  Bound: q, the kept K and V
+    # rows read and o written once; 4·D flops per (q head, key), fp32
+    g2 = get_config("gemma2_9b")
+    for tag, Hqd, Hkvd, Dd, S, pos_i, window in (
+            ("Mistral-NeMo", Hq, Hkv, D, 4096, 4095, None),
+            ("Phi-3-vision", pcfg.n_heads, pcfg.n_kv_heads, pcfg.hd, 4096,
+             4095, None),
+            ("Jamba attention", jcfg.n_heads, jcfg.n_kv_heads, jcfg.hd, 4096,
+             4095, None),
+            ("Gemma-2 window", g2.n_heads, g2.n_kv_heads, g2.hd, 8192, 8191,
+             g2.layer_pattern[0].window),
+            ("phase 4 generate", Hq, Hkv, D, 40, 39, None)):
+        Bd = 4
+        q = rand(Bd, Hqd, 1, Dd, dtype=bf)
+        k, v = rand(Bd, Hkvd, S, Dd, dtype=bf), rand(Bd, Hkvd, S, Dd,
+                                                     dtype=bf)
+        pos = torch.tensor(pos_i, dtype=torch.int32, device=dev)
+        lo = 0 if window is None else max(0, pos_i - window + 1)
+        kern = lambda: decode_attention_cuda(q, k, v, pos, window=window)
+        plain = lambda: R.decode_attention_ref(q, k, v, pos=pos,
+                                               window=window)
+        kept_k, kept_v = k[:, :, lo:pos_i + 1], v[:, :, lo:pos_i + 1]
+        lib = _sdpa(q, kept_k, kept_v, causal=False)
+        got = kern()
+        err = check_close(f"decode at the {tag} shape", got, plain(),
+                          BF16_TOL)
+        check_rel(f"decode at the {tag} shape", got, q, k, v,
+                  dict(causal=True, offset=pos_i, window=window))
+        rows = pos_i + 1 - lo
+        flops = 4 * Bd * Hqd * Dd * rows
+        nbytes = 2 * (2 * q.numel() + 2 * Bd * Hkvd * rows * Dd)
+        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        chunk, splits = autotile.decode_splits(Bd, Hkvd, Hqd // Hkvd, S, Dd,
+                                               2)
+        row = _row("flash_attention_decode",
+                   gen_launches[1] if tag == "Mistral-NeMo" else None, err,
+                   kern, plain, lib, b_ms, b_by,
+                   f"{tag}: B={Bd} Hq={Hqd} Hkv={Hkvd} cache={S} D={Dd} "
+                   f"pos={pos_i} window={window} chunk={chunk} "
+                   f"splits={splits}; ms and library ms as CUDA graphs",
+                   graph=True, **FLASH)
+        log(f"    eager (host-paced) calls: kernel {time_ms(kern):.4f} ms, "
+            f"SDPA {time_ms(lib):.4f} ms; {nbytes / row['ms'] / 1e6:.0f} "
+            f"GB/s, {b_ms / row['ms'] * 100:.1f}% of the bound")
+        if tag == "Mistral-NeMo":
+            kernels.append(row)
+        del q, k, v, kept_k, kept_v
     # K4 at rwkv6_7b's forward shape: B=1, H=64, T=2048, Dk=Dv=64, bf16
     Bw, Hw, Tw = 1, rcfg.d_model // rcfg.rwkv_head_dim, 2048
     Dw = rcfg.rwkv_head_dim
@@ -797,15 +892,16 @@ def main() -> int:
 
 
 def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
-           prefix=0):
+           prefix=0, then=None):
     """One main path: ``cfg`` at full width with random weights from
     ``seed``, ``forward`` on 2048 positions (``prefix`` random patch
     embeddings, then tokens) and ``generate`` (batch 4, prompt 16, 24 new),
     each between ``reset()`` and ``launches()``, which must read
-    ``want_fwd`` and ``want_gen(decode steps)``.  Returns the two launch
-    counts; frees the weights."""
+    ``want_fwd`` and ``want_gen(decode steps)``; then ``then(params)`` if
+    given.  Returns the two launch counts; frees the weights."""
     import torch
 
+    from repro_torch.kernels.flash_attention import decode_attention_cuda
     from repro_torch.models import transformer as TF
     from repro_torch.serve.engine import generate
 
@@ -871,12 +967,114 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
         log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
             f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps; "
             f"weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms), "
-            f"{B * new / gen_s:.1f} tok/s, launches {gen_launches}")
+            f"{B * new / gen_s:.1f} tok/s, launches {gen_launches}, K2 "
+            f"decode calls over more than one split "
+            f"{decode_attention_cuda.split_launches}")
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB")
+        if then is not None:
+            then(params)
     del params
     torch.cuda.empty_cache()
     return fwd_launches, gen_launches
+
+
+def long_cache_step(cfg, params, dev, gen, *, S: int = 4096, B: int = 4,
+                    steps: int = 6) -> dict:
+    """Decode steps of ``cfg`` (batch ``B``) over an ``S``-position cache
+    filled with random keys and values, at pos = S - steps - 1 .. S - 1:
+    each step's host-clock ms (synchronised), then one more step under
+    ``torch.profiler``: its device-busy ms (the sum of the kernels'
+    durations), the part of it in K2 decode (split and combine kernels),
+    the step's ms on the host clock inside the trace, and the K2 decode
+    calls (and, where the package counts them, split ones) of the timed
+    steps.  Also used by tools/k2_ab.py on an older tree."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import decode_attention_cuda
+    from repro_torch.models import transformer as TF
+
+    with torch.inference_mode():
+        state = TF.init_decode_state(cfg, B, S, device=dev)
+        for leaf in _leaves(state):
+            leaf.normal_(generator=gen)
+        kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+        tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        pos = torch.tensor(S - steps - 2, dtype=torch.int32, device=dev)
+        TF.decode_step(params, state, tok, pos, cfg)   # warm-up
+        pos += 1
+        torch.cuda.synchronize()
+        before = (decode_attention_cuda.launches,
+                  getattr(decode_attention_cuda, "split_launches", None))
+        host_ms = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            logits, state = TF.decode_step(params, state, tok, pos, cfg)
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            pos += 1
+        calls = decode_attention_cuda.launches - before[0]
+        split = (None if before[1] is None
+                 else decode_attention_cuda.split_launches - before[1])
+        finite = bool(torch.isfinite(logits).all())
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            t0 = time.perf_counter()
+            TF.decode_step(params, state, tok, pos, cfg)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in dev_events) / 1e3
+    k2 = sum(e.device_time for e in dev_events
+             if "flash_decode" in e.name) / 1e3
+    del state
+    torch.cuda.empty_cache()
+    return {"S": S, "B": B, "kv_bytes": kv_bytes, "host_ms": host_ms,
+            "traced_ms": traced_ms, "device_events": len(dev_events),
+            "busy_ms": busy, "k2_decode_ms": k2, "decode_calls": calls,
+            "split_calls": split, "logits_finite": finite}
+
+
+def _long_cache(cfg, params, dev, gen, reset, launches) -> None:
+    """Phase 4a's long-cache step: Mistral-NeMo at full width and depth,
+    batch 4, over a 4096-position cache; fails unless every K2 decode call
+    of the timed steps split the cache and the logits are finite."""
+    from repro_torch.kernels.flash_attention import decode_attention_cuda
+
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    reset()
+    r = long_cache_step(cfg, params, dev, gen)
+    steps = len(r["host_ms"])
+    # the timed steps, a warm-up step and the profiled one
+    want = (0, cfg.n_layers * (steps + 2), 0, 0, 0)
+    if launches() != want or r["decode_calls"] != cfg.n_layers * steps:
+        fail(f"long-cache decode launches {launches()}, want {want}")
+    if r["split_calls"] != cfg.n_layers * steps or \
+            decode_attention_cuda.split_launches != want[1]:
+        fail(f"{decode_attention_cuda.split_launches} of {want[1]} "
+             "long-cache K2 decode calls split the cache")
+    if not r["logits_finite"]:
+        fail("long-cache decode step: non-finite logits")
+    host = sorted(r["host_ms"])
+    log(f"  decode step B={r['B']} over a {r['S']}-position cache "
+        f"({r['kv_bytes'] / 2**30:.2f} GiB of KV beside "
+        f"{weight_bytes / 2**30:.2f} GiB of weights; bound "
+        f"{(weight_bytes + r['kv_bytes']) / PEAK_BYTES * 1e3:.2f} ms): host "
+        f"clock {', '.join(f'{t:.2f}' for t in r['host_ms'])} ms (median "
+        f"{host[len(host) // 2]:.2f}), launches {launches()} (with a "
+        f"warm-up and the profiled step), every K2 decode call split "
+        f"({decode_attention_cuda.split_launches})")
+    if r["device_events"] == 0:
+        log("  profiler: the trace holds no device event, so device-busy "
+            "time is not measured")
+        return
+    log(f"  profiled step: {r['traced_ms']:.2f} ms on the host clock, "
+        f"device busy {r['busy_ms']:.3f} ms over {r['device_events']} "
+        f"device events (idle {1 - r['busy_ms'] / r['traced_ms']:.1%}), "
+        f"K2 decode {r['k2_decode_ms']:.3f} ms "
+        f"({r['k2_decode_ms'] / r['busy_ms']:.1%} of busy)")
 
 
 def _encdec_generate(step, params, state, prompts, enc_out, new: int):
@@ -1123,12 +1321,13 @@ def _sdpa(q, k, v, causal):
 
 
 def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape, *,
-         source, replaces, no_library=None):
+         source, replaces, no_library=None, graph=False):
     """One entry of the ``kernels`` line (logged too); ``lib`` is None
     (with the reason in ``no_library``) where no PyTorch call computes the
-    same function."""
-    ms, plain_ms = time_ms(kern), time_ms(plain, reps=5)
-    lib_ms = time_ms(lib) if lib is not None else None
+    same function.  With ``graph`` the kernel and the library call are
+    timed as CUDA graphs (``time_ms``), the plain version eagerly."""
+    ms, plain_ms = time_ms(kern, graph=graph), time_ms(plain, reps=5)
+    lib_ms = time_ms(lib, graph=graph) if lib is not None else None
     lib_txt = (f"{lib_ms:.4f} ms" if lib_ms is not None
                else f"none ({no_library})")
     log(f"  {name} [{shape}]: {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "

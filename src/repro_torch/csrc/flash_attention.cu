@@ -48,15 +48,37 @@
 //      micro-tile, tiles are staged as fp32 rows padded to D + 1 floats.
 //
 //  * lego_flash_decode — Tq = 1 over a KV cache at a run-time position read
-//    from device memory (the host never syncs on it).  One block per
-//    (b, kv-head, slice of <= 4 query rows of the head's GQA group): at
-//    Mistral-NeMo width the group is 4 rows, so each KV row is read once per
-//    group.  Bound: bytes of KV read (each cache row is used for 4*G*D flops).
-//    The design keeps many rows in flight: each warp (or, at D < 128, each
-//    sub-warp of D/4 lanes, D/6 at D = 96) streams its own strided share of
-//    the positions max(0, pos-window+1) .. pos, U rows at a time, with a
-//    private online softmax; the partial (m, l, acc) of all warps are merged
-//    in shared memory at the end.
+//    from device memory (the host never syncs on it, so a step that calls
+//    it can be captured in a CUDA graph).  Bound: bytes of KV read (each
+//    cache row is used for 4*G*D flops, G the rows of a GQA group), so the
+//    arithmetic is fp32 on the CUDA cores in both dtypes.  Split KV
+//    (flash-decoding), so that a batch of a few sequences over a few kv
+//    heads still fills 132 SMs: the cache is cut into `splits` chunks of
+//    `chunk` positions, both from the shapes alone
+//    (repro_torch/kernels/autotile.py::decode_splits), and one block of 4
+//    warps takes (a slice of <= R rows of a GQA group, a kv head, a batch
+//    row, a chunk), so a kv row is read once per (b, kv head) at groups up
+//    to 8 (autotile.decode_rows).  In the block a kv row is spread over a
+//    power of two of lanes in 16-byte pieces; each lane copies its own
+//    pieces of the rows it will use into a ring of shared memory with
+//    cp.async, several stages ahead, so the loads stay in flight while it
+//    computes and no barrier is needed in the loop.  Each warp slot keeps
+//    an online softmax over its strided share of the chunk's rows within
+//    max(0, pos-window+1) .. min(pos, S-1), in log2 units, rescaling acc
+//    only when the running max grows by more than 2^8; the partial dot
+//    products of a step's rows are summed over a row's lanes by a
+//    reduce-scatter, so that each lane finishes and exponentiates only its
+//    share of the scores, and the p are then shared by shuffles for P V.
+//    The slots' (m, l, acc) are merged by shuffles, the warps' in shared
+//    memory.  A block
+//    whose chunk lies wholly outside that range writes an empty partial
+//    (m = NEG_INF, l = 0, acc = 0).  With one split the block writes o;
+//    else it writes its partial, in fp32, to a workspace the caller passes
+//    (B*Hq*splits*(D + 2) floats), and a combine kernel launched after it
+//    on the same stream (a programmatic dependent launch, so its launch
+//    overlaps the split kernel's tail) merges the splits of each
+//    (b, q head): M = max m_i, l = sum l_i e^(m_i - M) (0 -> 1),
+//    o = sum acc_i e^(m_i - M) / l, rounded to o's dtype once.
 //
 // Both launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or the error of a refused set-up) so that a failure is
@@ -97,16 +119,6 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&o)[4]) {
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ __forceinline__ void load2(const float* p, float (&o)[2]) {
-  const float2 x = *reinterpret_cast<const float2*>(p);
-  o[0] = x.x; o[1] = x.y;
-}
-
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&o)[2]) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  o[0] = x.x; o[1] = x.y;
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
@@ -872,187 +884,523 @@ cudaError_t prefill_tiles(int dtype, int D, int bq, int bk, const void* q,
 
 
 // ---------------------------------------------------------------------------
-// decode
+// decode: split-KV (flash-decoding), then a combine pass
 // ---------------------------------------------------------------------------
 
-constexpr int DEC_THREADS = 256;
+constexpr int DEC_THREADS = 128;
 constexpr int DEC_WARPS = DEC_THREADS / 32;
-constexpr int DEC_ROWS = 4;   // query rows per block
+constexpr int DEC_RING_BYTES = 48 * 1024;   // the cp.async ring of a block
+constexpr int COMBINE_THREADS = 128;
+constexpr int MAX_SPLITS = 1024;            // autotile.decode_splits: <= 528
+constexpr float LOG2E = 1.4426950408889634f;
+// a row's reference max moves only when a score passes it by more than
+// this (log2 units): p and l then stay below 2^8 times their exact sizes,
+// which fp32 holds, and most steps skip the rescale of acc
+constexpr float RESCALE_SLACK = 8.f;
 
-// A kv row is split over LANES lanes, which must divide the warp (the
-// shuffle sums run within aligned groups of LANES).  D = 96 takes 16 lanes
-// of 6 elements (with 4 elements a row would need 24 lanes).
-template <int D>
-struct DecodeShape {
-  static constexpr int EPL =                          // elements per lane
-      D >= 128 ? D / 32 : (D == 96 ? 6 : 4);
-  static constexpr int VEC = EPL % 4 == 0 ? 4 : 2;    // elements per load
-  static constexpr int LANES = D / EPL;               // lanes per kv row
-  static constexpr int SLOTS = 32 / LANES;            // kv rows per warp step
-  static constexpr int U = 32 / EPL;                  // steps in flight
-  static constexpr int PARTS = DEC_WARPS * SLOTS;     // partial softmaxes
-  static_assert(D % EPL == 0 && EPL % VEC == 0 && 32 % LANES == 0,
-                "decode shape");
-};
-
-template <int V, typename T>
-__device__ __forceinline__ void loadv(const T* p, float (&o)[V]) {
-  if constexpr (V == 4) load4(p, o); else load2(p, o);
+constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
 }
 
-template <typename T, int D>
+// A kv row is spread over LANES lanes (a power of two, so that the shuffle
+// sums run within aligned groups), E = 8 elements each: one 16-byte piece
+// in bf16, two in fp32.  A lane's piece j holds elements
+// d0 + j*LANES*PER .. + PER, d0 = (lane % LANES)*PER, so that the LANES
+// lanes of a row copy one contiguous span per instruction; a piece past D
+// (at D = 96) is held by no lane.  SLOTS rows share a warp step, U steps
+// make a stage of the ring (2 at 8 rows, where q and acc take 128
+// registers, and in fp32), and the ring holds as many stages as
+// DEC_RING_BYTES allows.  (16 elements a lane measured slower: twice the
+// registers for q and acc, so fewer blocks fit an SM.)
+template <typename T, int D, int R>
+struct DecodeShape {
+  static constexpr int E = 8;
+  static constexpr int PER = 16 / (int)sizeof(T);   // elements a piece
+  static constexpr int CH = E / PER;                 // pieces a lane-row
+  static constexpr int LANES = pow2_at_least(D / E);
+  static constexpr int SPAN = LANES * PER;           // elements a piece step
+  static constexpr int SLOTS = 32 / LANES;
+  static constexpr int STRIDE = DEC_WARPS * SLOTS;  // rows a block step
+  static constexpr int U = (CH == 1 && R < 8) ? 4 : 2;
+  // one stage: U rows of K and V a lane, CH pieces each
+  static constexpr int STAGE_BYTES = DEC_THREADS * U * 2 * CH * 16;
+  static constexpr int NS = DEC_RING_BYTES / STAGE_BYTES;
+  static constexpr int MERGE_BYTES = 4 * DEC_WARPS * R * (D + 2);
+  static constexpr int BYTES =
+      MERGE_BYTES > DEC_RING_BYTES ? MERGE_BYTES : DEC_RING_BYTES;
+  static_assert(D % E == 0 && E % PER == 0 && LANES <= 32 && NS >= 2,
+                "decode shape");
+  static_assert(BYTES <= 48 * 1024, "decode shared memory is static");
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  // src-size 0 zero-fills the 16 bytes and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// the elements of one 16-byte piece as fp32
+__device__ __forceinline__ void unpack16(const uint4& raw, const float*,
+                                         float* o) {
+  o[0] = __uint_as_float(raw.x); o[1] = __uint_as_float(raw.y);
+  o[2] = __uint_as_float(raw.z); o[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ void unpack16(const uint4& raw,
+                                         const __nv_bfloat16*, float* o) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(w[i] << 16);
+    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// a lane's E elements from its pieces in the ring, where the 32 lanes'
+// pieces lie side by side (so the reads are free of bank conflicts)
+template <typename T, int E>
+__device__ __forceinline__ void unpack_row(const uint4* p, float (&o)[E]) {
+  constexpr int PER = 16 / sizeof(T);
+#pragma unroll
+  for (int j = 0; j < E / PER; ++j)
+    unpack16(p[32 * j], static_cast<const T*>(nullptr), o + j * PER);
+}
+
+// a[i] for a run-time i, and a[i] += x, without indexing registers at run
+// time (which would put the array in local memory)
+template <int R>
+__device__ __forceinline__ float pick(const float (&a)[R], int i) {
+  float x = a[0];
+#pragma unroll
+  for (int k = 1; k < R; ++k) x = k == i ? a[k] : x;
+  return x;
+}
+
+template <int R>
+__device__ __forceinline__ void add_at(float (&a)[R], int i, float x) {
+#pragma unroll
+  for (int k = 0; k < R; ++k) a[k] += k == i ? x : 0.f;
+}
+
+// Sums CNT values a lane holds over the lanes whose bits B, B/2, .., 1 differ
+// (a group of 2B lanes), leaving each lane a share of the sums: while it
+// holds two or more, a lane sends the half its bit B does not keep and adds
+// the half its partner sends; past that, plain butterfly sums.  A lane g of
+// the group ends with max(1, CNT / 2B) sums, those of indices j + K*(g / G)
+// (K the count it keeps, G = max(1, 2B / CNT) lanes holding the same ones).
+template <int CNT, int B, int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (B >= 1) {
+    if constexpr (CNT >= 2) {
+      constexpr int H = CNT / 2;
+      const bool upper = lane & B;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const float send = upper ? v[j] : v[j + H];
+        const float keep = upper ? v[j + H] : v[j];
+        v[j] = keep + __shfl_xor_sync(0xffffffffu, send, B);
+      }
+      reduce_scatter<H, B / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], B);
+      reduce_scatter<1, B / 2>(v, lane);
+    }
+  }
+}
+
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* ws;          // partials (splits > 1): acc, then m, then l
+  const int* pos;
+  int B, Hq, Hkv, S, chunk, splits, window;
+  float softcap, scale;
+};
+
+// One block per (slice of R query rows of a GQA group, kv head, batch x
+// split c): it streams the cache rows [c*chunk, (c+1)*chunk) within
+// [lo, hi] and writes its (m, l, acc) in fp32 to the workspace, or, when
+// there is one split, o itself.  Scores and m are kept in log2 units (the
+// scale times log2 e), so every exponential is one exp2.
+//
+// The rows reach shared memory through a ring of NS stages of cp.async
+// copies that each lane issues for the 16-byte pieces it alone reads back:
+// no barrier is needed in the loop, and NS - 1 stages stay in flight while
+// the lane computes on the oldest.
+template <typename T, int D, int R>
 __global__ void __launch_bounds__(DEC_THREADS)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o,
-                    const int* __restrict__ pos_ptr, int Hq, int Hkv, int S,
-                    int window, float softcap, float scale) {
-  using DS = DecodeShape<D>;
-  constexpr int EPL = DS::EPL, VEC = DS::VEC, LANES = DS::LANES;
-  constexpr int SLOTS = DS::SLOTS;
-  constexpr int U = DS::U, PARTS = DS::PARTS, R = DEC_ROWS;
-  __shared__ float m_sm[PARTS][R];
-  __shared__ float l_sm[PARTS][R];
-  __shared__ float acc_sm[PARTS][R][D];
+flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ ws,
+                          const int* __restrict__ pos_ptr, int Hq, int Hkv,
+                          int S, int chunk, int splits, int window,
+                          float softcap, float scale) {
+  using DS = DecodeShape<T, D, R>;
+  constexpr int LANES = DS::LANES, SLOTS = DS::SLOTS;
+  constexpr int STRIDE = DS::STRIDE, U = DS::U, CH = DS::CH, NS = DS::NS;
+  constexpr int E = DS::E, PER = DS::PER, SPAN = DS::SPAN;
+  // after the reduce-scatter a lane holds K of the slot's N = U*R scores,
+  // and G lanes hold the same K
+  constexpr int N = U * R;
+  constexpr int K = N >= LANES ? N / LANES : 1;
+  constexpr int G = N >= LANES ? 1 : LANES / N;
+  __shared__ __align__(16) unsigned char smem[DS::BYTES];
 
   const int group = Hq / Hkv;
   const int row0 = blockIdx.x * R;
   const int nrows = min(R, group - row0);
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / splits, c = blockIdx.z % splits;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int slot = lane / LANES, d0 = (lane % LANES) * EPL;
-  const int part = warp * SLOTS + slot;
+  const int slot = lane / LANES, d0 = (lane % LANES) * PER;
+  auto holds = [&](int j) { return d0 + j * SPAN < D; };
+  const int own = (lane % LANES) / G, src0 = slot * LANES;
+  const bool counts = (lane % LANES) % G == 0;
+  // (b, first q head of the block): o's row, and the partials' row / splits
+  const size_t bh0 = (size_t)b * Hq + (size_t)kvh * group + row0;
+  const size_t BH = (size_t)(gridDim.z / splits) * Hq;
+  float* acc_ws = ws;
+  float* m_ws = ws + BH * splits * D;
+  float* l_ws = m_ws + BH * splits;
 
   const int pos = *pos_ptr;
-  const int hi = min(pos, S - 1);
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int hi = min(min(pos, S - 1), (c + 1) * chunk - 1);
+  const int lo = max(window > 0 ? max(0, pos - window + 1) : 0, c * chunk);
+  if (lo > hi) {   // the chunk lies outside [lo, hi]: an empty partial
+    for (int idx = threadIdx.x; idx < nrows * D; idx += DEC_THREADS) {
+      if (splits == 1) {
+        store1(o + (bh0 + idx / D) * D + idx % D, 0.f);
+        continue;
+      }
+      const size_t pi = (bh0 + idx / D) * splits + c;
+      if (idx % D == 0) { m_ws[pi] = NEG_INF; l_ws[pi] = 0.f; }
+      acc_ws[pi * D + idx % D] = 0.f;
+    }
+    return;
+  }
 
   const T* kb = k + ((size_t)b * Hkv + kvh) * (size_t)S * D;
   const T* vb = v + ((size_t)b * Hkv + kvh) * (size_t)S * D;
-  float qr[R][EPL];
+  // this lane's first piece of stage st, step u, K (kv = 0) or V (kv = 1)
+  const uint4* ring = reinterpret_cast<const uint4*>(smem)
+                      + warp * NS * U * 2 * CH * 32 + lane;
+  auto piece = [&](int st, int u, int kv) {
+    return ring + ((st * U + u) * 2 + kv) * CH * 32;
+  };
+  // every lane of a warp runs the same trip count: the shuffles need it
+  const int first = lo + warp * SLOTS;
+  const int n_it = first <= hi ? (hi - first) / (STRIDE * U) + 1 : 0;
+  auto issue = [&](int it) {
+    if (it < n_it) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t h = (size_t)kvh * group + row0 + r;
+      for (int u = 0; u < U; ++u) {
+        const int p = first + it * STRIDE * U + slot + u * STRIDE;
 #pragma unroll
-    for (int e = 0; e < EPL; e += VEC) {
-      float x[VEC] = {};
-      if (r < nrows) loadv<VEC>(q + ((size_t)b * Hq + h) * D + d0 + e, x);
-#pragma unroll
-      for (int t = 0; t < VEC; ++t) qr[r][e + t] = x[t];
+        for (int j = 0; j < CH; ++j) {
+          const bool full = holds(j) && p <= hi;
+          const size_t off = full ? (size_t)p * D + d0 + j * SPAN : 0;
+          cp_async16(smem_addr(piece(it % NS, u, 0) + 32 * j), kb + off,
+                     full);
+          cp_async16(smem_addr(piece(it % NS, u, 1) + 32 * j), vb + off,
+                     full);
+        }
+      }
     }
-  }
+    cp_async_commit();   // empty past the end, so the group count holds
+  };
+#pragma unroll
+  for (int st = 0; st < NS - 1; ++st) issue(st);
 
-  float m[R], l[R], acc[R][EPL];
+  float qr[R][E];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      float x[PER] = {};
+      if (holds(j) && r < nrows)
+        unpack16(*reinterpret_cast<const uint4*>(q + (bh0 + r) * D + d0
+                                                 + j * SPAN), q, x);
+#pragma unroll
+      for (int e = 0; e < PER; ++e) qr[r][j * PER + e] = x[e];
+    }
+
+  float m[R], l[R], acc[R][E];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
   }
 
-  // every lane runs the same trip count: the shuffles below need the warp
-  constexpr int STRIDE = DEC_WARPS * SLOTS;
-  for (int base = lo + warp * SLOTS; base <= hi; base += STRIDE * U) {
-    float kx[U][EPL], vx[U][EPL];
+  for (int it = 0; it < n_it; ++it) {
+    issue(it + NS - 1);
+    cp_async_wait<NS - 1>();
+    const int st = it % NS;
+    const int base = first + it * STRIDE * U;
+    // partial dots of this lane's elements, n = u*R + r, then summed over
+    // the slot's lanes, each lane keeping K of the N scores
+    float s[N];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int p = base + slot + u * STRIDE;
-#pragma unroll
-      for (int e = 0; e < EPL; e += VEC) {
-        float xk[VEC] = {}, xv[VEC] = {};
-        if (p <= hi) {
-          loadv<VEC>(kb + (size_t)p * D + d0 + e, xk);
-          loadv<VEC>(vb + (size_t)p * D + d0 + e, xv);
-        }
-#pragma unroll
-        for (int t = 0; t < VEC; ++t) { kx[u][e + t] = xk[t]; vx[u][e + t] = xv[t]; }
-      }
-    }
-    float s[U][R];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
+      float kx[E];
+      unpack_row<T, E>(piece(st, u, 0), kx);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float part_dot = 0.f;
+        float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) part_dot = fmaf(qr[r][e], kx[u][e], part_dot);
-#pragma unroll
-        for (int off = LANES / 2; off > 0; off /= 2)
-          part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
-        const bool valid = base + slot + u * STRIDE <= hi;
-        s[u][r] = valid ? cap_score(part_dot * scale, softcap) : -INFINITY;
+        for (int e = 0; e < E; ++e) dot = fmaf(qr[r][e], kx[e], dot);
+        s[u * R + r] = dot;
       }
+    }
+    reduce_scatter<N, LANES / 2>(s, lane);
+    bool grow = false;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float mx = m[r];
+    for (int j = 0; j < K; ++j) {
+      const int n = j + K * own;
+      const bool valid = base + slot + (n / R) * STRIDE <= hi;
+      s[j] = valid ? cap_score(s[j] * scale, softcap) * LOG2E : -INFINITY;
+      grow |= s[j] > pick(m, n % R) + RESCALE_SLACK;
+    }
+    // the slot's reference max moves (the first step; later, rarely): every
+    // lane gathers the slot's N scores
+    if (__any_sync(0xffffffffu, grow)) {
+      float mx[R];
 #pragma unroll
-      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][r]);
-      const float corr = expf(m[r] - mx);
-      l[r] *= corr;
+      for (int r = 0; r < R; ++r) mx[r] = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) acc[r][e] *= corr;
+      for (int n = 0; n < N; ++n)
+        mx[n % R] = fmaxf(mx[n % R], __shfl_sync(0xffffffffu, s[n % K],
+                                                 src0 + (n / K) * G));
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float p = expf(s[u][r] - mx);
-        l[r] += p;
+      for (int r = 0; r < R; ++r) {
+        const float mn = mx[r] > m[r] + RESCALE_SLACK ? mx[r] : m[r];
+        const float corr = exp2f(m[r] - mn);
+        l[r] *= corr;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[r][e] = fmaf(p, vx[u][e], acc[r][e]);
+        for (int e = 0; e < E; ++e) acc[r][e] *= corr;
+        m[r] = mn;
       }
-      m[r] = mx;
+    }
+    // p for this lane's scores (l counts each score on one lane only), then
+    // every p of the slot for P V
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int r = (j + K * own) % R;
+      s[j] = exp2f(s[j] - pick(m, r));
+      if (counts) add_at(l, r, s[j]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vx[E];
+      unpack_row<T, E>(piece(st, u, 1), vx);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int n = u * R + r;
+        const float p = __shfl_sync(0xffffffffu, s[n % K],
+                                    src0 + (n / K) * G);
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] = fmaf(p, vx[e], acc[r][e]);
+      }
     }
   }
 
+  // l is summed over the slot's lanes
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (lane % LANES == 0) { m_sm[part][r] = m[r]; l_sm[part][r] = l[r]; }
+  for (int off = 1; off < LANES; off *= 2)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc_sm[part][r][d0 + e] = acc[r][e];
+    for (int r = 0; r < R; ++r)
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], off);
+
+  // merge the SLOTS partials of a warp by shuffles (lanes LANES apart hold
+  // the same elements of other rows), then the warps' in shared memory,
+  // which the ring no longer uses once every warp is past its loop
+#pragma unroll
+  for (int off = LANES; off < 32; off *= 2)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[r], off);
+      const float mn = fmaxf(m[r], mo);
+      const float cs = exp2f(m[r] - mn), co = exp2f(mo - mn);
+      l[r] = l[r] * cs + lo_ * co;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[r][e] = acc[r][e] * cs
+                    + __shfl_xor_sync(0xffffffffu, acc[r][e], off) * co;
+      m[r] = mn;
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* m_sm = reinterpret_cast<float*>(smem);   // [DEC_WARPS][R]
+  float* l_sm = m_sm + DEC_WARPS * R;              // [DEC_WARPS][R]
+  float* acc_sm = l_sm + DEC_WARPS * R;            // [DEC_WARPS][R][D]
+  if (slot == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (lane == 0) {
+        m_sm[warp * R + r] = m[r];
+        l_sm[warp * R + r] = l[r];
+      }
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+        if (holds(j)) {
+#pragma unroll
+          for (int e = 0; e < PER; ++e)
+            acc_sm[(warp * R + r) * D + d0 + j * SPAN + e] =
+                acc[r][j * PER + e];
+        }
+    }
   }
   __syncthreads();
+  // the combine kernel may be scheduled from here (it waits for the grid)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 
   for (int idx = threadIdx.x; idx < nrows * D; idx += DEC_THREADS) {
     const int r = idx / D, d = idx % D;
-    float mx = NEG_INF;
-    for (int w = 0; w < PARTS; ++w) mx = fmaxf(mx, m_sm[w][r]);
+    float mb = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) mb = fmaxf(mb, m_sm[w * R + r]);
     float lsum = 0.f, osum = 0.f;
-    for (int w = 0; w < PARTS; ++w) {
-      const float c = expf(m_sm[w][r] - mx);
-      lsum += l_sm[w][r] * c;
-      osum += acc_sm[w][r][d] * c;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float cw = exp2f(m_sm[w * R + r] - mb);
+      lsum += l_sm[w * R + r] * cw;
+      osum += acc_sm[(w * R + r) * D + d] * cw;
     }
-    lsum = (lsum == 0.f) ? 1.f : lsum;
-    const size_t h = (size_t)kvh * group + row0 + r;
-    store1(o + ((size_t)b * Hq + h) * D + d, osum / lsum);
+    if (splits == 1) {
+      lsum = (lsum == 0.f) ? 1.f : lsum;
+      store1(o + (bh0 + r) * D + d, osum / lsum);
+      continue;
+    }
+    const size_t pi = (bh0 + r) * splits + c;
+    if (d == 0) { m_ws[pi] = mb; l_ws[pi] = lsum; }
+    acc_ws[pi * D + d] = osum;
   }
 }
 
+// One block per (b, q head): M = max_i m_i, w_i = e^(m_i - M) (an exp2: m
+// is in log2 units), l = sum_i l_i w_i (0 -> 1), then o = sum_i acc_i w_i /
+// l for each of the D elements, rounded to o's dtype once.  An empty
+// partial (m = NEG_INF, l = 0, acc = 0) adds nothing.  Launched as a
+// programmatic dependent of the split kernel: it may start before that
+// grid ends and waits for it (and its writes) first.
+template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+flash_decode_combine_kernel(const float* __restrict__ ws, T* __restrict__ o,
+                            int BH, int D, int splits) {
+  __shared__ float w_sm[MAX_SPLITS];
+  __shared__ float l_sm[MAX_SPLITS];
+  __shared__ float red[COMBINE_THREADS / 32];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const float* acc = ws + (size_t)bh * splits * D;
+  const float* m = ws + (size_t)BH * splits * D + (size_t)bh * splits;
+  const float* l = m + (size_t)BH * splits;
+
+  float mx = NEG_INF;
+  for (int i = tid; i < splits; i += COMBINE_THREADS) {
+    w_sm[i] = m[i];
+    l_sm[i] = l[i];
+    mx = fmaxf(mx, w_sm[i]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < COMBINE_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+  __syncthreads();
+
+  float lsum = 0.f;
+  for (int i = tid; i < splits; i += COMBINE_THREADS) {
+    const float ci = exp2f(w_sm[i] - mx);
+    w_sm[i] = ci;
+    lsum = fmaf(l_sm[i], ci, lsum);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+  if (lane == 0) red[warp] = lsum;
+  __syncthreads();
+  lsum = 0.f;
+#pragma unroll
+  for (int w = 0; w < COMBINE_THREADS / 32; ++w) lsum += red[w];
+  lsum = (lsum == 0.f) ? 1.f : lsum;
+
+  for (int d = tid; d < D; d += COMBINE_THREADS) {
+    float osum = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < splits; ++i)
+      osum = fmaf(acc[(size_t)i * D + d], w_sm[i], osum);
+    store1(o + (size_t)bh * D + d, osum / lsum);
+  }
+}
+
+template <typename T, int D, int R>
+cudaError_t launch_decode(const DecodeArgs& a, cudaStream_t stream) {
+  const int group = a.Hq / a.Hkv;
+  const dim3 grid((group + R - 1) / R, a.Hkv, a.B * a.splits);
+  flash_decode_split_kernel<T, D, R><<<grid, DEC_THREADS, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.ws, a.pos, a.Hq,
+      a.Hkv, a.S, a.chunk, a.splits, a.window, a.softcap, a.scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  // a programmatic dependent launch: the combine's launch overlaps the
+  // split kernel's last blocks
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.B * a.Hq);
+  cfg.blockDim = dim3(COMBINE_THREADS);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<T>,
+                            static_cast<const float*>(a.ws),
+                            static_cast<T*>(a.o), a.B * a.Hq, D, a.splits);
+}
+
 template <typename T, int D>
-cudaError_t launch_decode(const void* q, const void* k, const void* v, void* o,
-                          const void* pos, int B, int Hq, int Hkv, int S,
-                          int window, float softcap, float scale,
-                          cudaStream_t stream) {
-  const int group = Hq / Hkv;
-  const dim3 grid((group + DEC_ROWS - 1) / DEC_ROWS, Hkv, B);
-  flash_decode_kernel<T, D><<<grid, DEC_THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<const int*>(pos), Hq, Hkv, S, window, softcap, scale);
-  return cudaGetLastError();
+cudaError_t decode_rows(int rows, const DecodeArgs& a, cudaStream_t st) {
+  switch (rows) {
+    case 1: return launch_decode<T, D, 1>(a, st);
+    case 2: return launch_decode<T, D, 2>(a, st);
+    case 4: return launch_decode<T, D, 4>(a, st);
+    case 8: return launch_decode<T, D, 8>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t decode_dims(int D, const void* q, const void* k, const void* v,
-                        void* o, const void* pos, int B, int Hq, int Hkv, int S,
-                        int window, float softcap, float scale,
+cudaError_t decode_dims(int D, int rows, const DecodeArgs& a,
                         cudaStream_t st) {
   switch (D) {
-    case 16: return launch_decode<T, 16>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
-    case 32: return launch_decode<T, 32>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
-    case 64: return launch_decode<T, 64>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
-    case 96: return launch_decode<T, 96>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
-    case 128: return launch_decode<T, 128>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
-    case 256: return launch_decode<T, 256>(q, k, v, o, pos, B, Hq, Hkv, S, window, softcap, scale, st);
+    case 16: return decode_rows<T, 16>(rows, a, st);
+    case 32: return decode_rows<T, 32>(rows, a, st);
+    case 64: return decode_rows<T, 64>(rows, a, st);
+    case 96: return decode_rows<T, 96>(rows, a, st);
+    case 128: return decode_rows<T, 128>(rows, a, st);
+    case 256: return decode_rows<T, 256>(rows, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1064,6 +1412,9 @@ cudaError_t decode_dims(int D, const void* q, const void* k, const void* v,
 // C interface (loaded with ctypes).  dtype: 0 = float32, 1 = bfloat16.
 // window <= 0 means no window, softcap <= 0 means no softcap.  The prefill
 // writes the kernel it launched to *kernel (0: CUDA cores, 1: tensor cores).
+// The decode takes its rows per block (1, 2, 4 or 8), chunk and splits from
+// repro_torch/kernels/autotile.py (splits = ceil(S / chunk), at least 1) and,
+// when splits > 1, a workspace of B*Hq*splits*(D + 2) floats.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -1079,16 +1430,20 @@ int lego_flash_prefill(const void* q, const void* k, const void* v, void* o,
 }
 
 int lego_flash_decode(const void* q, const void* k, const void* v, void* o,
-                      const void* pos, int dtype, int B, int Hq, int Hkv, int S,
-                      int D, int window, float softcap, float scale,
-                      void* stream) {
+                      const void* pos, void* ws, int dtype, int B, int Hq,
+                      int Hkv, int S, int D, int rows, int chunk, int splits,
+                      int window, float softcap, float scale, void* stream) {
+  if (chunk < 1 || splits != (S > chunk ? (S + chunk - 1) / chunk : 1)
+      || splits > MAX_SPLITS || (splits > 1 && ws == nullptr)
+      || B * splits > 65535 || Hkv < 1
+      || Hq % Hkv)
+    return cudaErrorInvalidValue;
+  const DecodeArgs a{q, k, v, o, static_cast<float*>(ws),
+                     static_cast<const int*>(pos), B, Hq, Hkv, S, chunk,
+                     splits, window, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return decode_dims<float>(D, q, k, v, o, pos, B, Hq, Hkv, S, window,
-                              softcap, scale, st);
-  if (dtype == 1)
-    return decode_dims<__nv_bfloat16>(D, q, k, v, o, pos, B, Hq, Hkv, S,
-                                      window, softcap, scale, st);
+  if (dtype == 0) return decode_dims<float>(D, rows, a, st);
+  if (dtype == 1) return decode_dims<__nv_bfloat16>(D, rows, a, st);
   return cudaErrorInvalidValue;
 }
 

@@ -20,6 +20,7 @@ module is where the attention tiles are decided: ``_build`` writes
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -37,6 +38,17 @@ GEMM_TILES = {
 GEMM_STAGES = 2
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head_dims K2 is built for
+
+# K2 decode (flash-decoding): blocks of DECODE_ROWS query rows of one GQA
+# group over one chunk of the cache; the chunk is cut so that at least
+# DECODE_WAVES blocks per SM are launched, and no shorter than
+# DECODE_MIN_BYTES of K and V a block (its start-up and its partial's write
+# are then small beside its reads)
+H100_SMS = 132
+DECODE_ROWS = (1, 2, 4, 8)
+DECODE_WAVES = 2
+DECODE_MIN_BYTES = 64 * 1024
+DECODE_MAX_SPLITS = 1024   # MAX_SPLITS of csrc/flash_attention.cu
 
 # (bq, bk) candidates of csrc/flash_attention.cu, by element size in
 # bytes: fp32 prefill on the CUDA cores (4·bq threads, bk/16 score columns
@@ -172,6 +184,47 @@ def attention_tiles(Tq: int, Tk: int, D: int, dtype_bytes: int,
                          f"of shared memory at head_dim {D} and "
                          f"{dtype_bytes}-byte elements")
     return best
+
+
+@functools.cache
+def decode_rows(group: int) -> int:
+    """Query rows of one GQA group that a K2 decode block takes: the
+    smallest of ``DECODE_ROWS`` that holds the group, else the largest (a
+    group of 16 or 32 takes 2 or 4 blocks, which share the KV rows through
+    L2)."""
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    return next((r for r in DECODE_ROWS if r >= group), DECODE_ROWS[-1])
+
+
+@functools.cache
+def decode_splits(B: int, Hkv: int, group: int, S: int, D: int,
+                  dtype_bytes: int) -> tuple[int, int]:
+    """(chunk length L, split count ceil(S / L)) of K2 decode over a cache
+    of S positions, from the static shapes alone (never the position, which
+    lives on the device: reading it would make the host wait and break a
+    CUDA-graph capture).  L is a power of two, at least the chunk that holds
+    ``DECODE_MIN_BYTES`` of K and V; from the whole cache down, it is halved
+    while fewer than ``DECODE_WAVES`` x ``H100_SMS`` blocks would run, so
+    there are fewer than twice that many splits (the kernel takes up to
+    ``DECODE_MAX_SPLITS``).  A cache of at most L positions takes one
+    split, which writes the output itself.  Cached: the decode wrapper asks
+    on every call."""
+    if min(B, Hkv, group, D, dtype_bytes) < 1 or S < 0:
+        raise ValueError(f"bad decode shape B={B} Hkv={Hkv} group={group} "
+                         f"S={S} D={D} dtype_bytes={dtype_bytes}")
+    blocks = -(-group // decode_rows(group)) * Hkv * B
+    min_chunk = max(16, _pow2_at_least(DECODE_MIN_BYTES
+                                       // (2 * D * dtype_bytes)))
+    chunk = max(min_chunk, _pow2_at_least(S))
+    while chunk > min_chunk and blocks * -(-S // chunk) < \
+            DECODE_WAVES * H100_SMS:
+        chunk //= 2
+    return chunk, max(1, -(-S // chunk))
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
 
 
 def attention_tiles_header() -> str:

@@ -12,13 +12,18 @@ kernels:
     (bq, bk) must be one that the dtype's kernel builds
     (``autotile.attention_built_tiles``).
   * ``decode_attention_cuda`` — one query token per head over a KV cache,
-    at a position read from a 0-d int32 device tensor (no host sync).
+    at a position read from a 0-d int32 device tensor (no host sync):
+    split-KV (flash-decoding), the cache cut into chunks by
+    ``autotile.decode_splits`` from the shapes alone, each chunk's partial
+    softmax written to an fp32 workspace and merged by a combine kernel on
+    the same stream.
 
 Each wrapper checks its inputs and raises on anything the kernel does not
 take, launches on the current stream, raises if the launch was refused,
-and counts its launches in ``<wrapper>.launches``; the prefill also counts,
-in ``.tensor_core_launches``, those that the library reports to have gone
-to the tensor-core kernel.  The plain versions live
+and counts its launches in ``<wrapper>.launches`` (one a call); the prefill
+also counts, in ``.tensor_core_launches``, those that the library reports
+to have gone to the tensor-core kernel, the decode, in ``.split_launches``,
+the calls that ran more than one split (and so the combine kernel).  The plain versions live
 in :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops` picks
 between them by the tensors' device.
 """
@@ -30,7 +35,8 @@ import ctypes
 import torch
 
 from . import _build
-from .autotile import HEAD_DIMS, attention_built_tiles
+from .autotile import (HEAD_DIMS, attention_built_tiles, decode_rows,
+                       decode_splits)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -40,8 +46,9 @@ _PROTOTYPES = {
     # softcap, scale, offset, stream, &kernel launched (1: tensor cores)
     "lego_flash_prefill": (_I, [_P, _P, _P, _P] + [_I] * 11
                            + [_F, _F, _I, _P, ctypes.POINTER(_I)]),
-    # q, k, v, o, pos, dtype, B, Hq, Hkv, S, D, window, softcap, scale, stream
-    "lego_flash_decode": (_I, [_P] * 5 + [_I] * 7 + [_F, _F, _P]),
+    # q, k, v, o, pos, workspace, dtype, B, Hq, Hkv, S, D, rows, chunk,
+    # splits, window, softcap, scale, stream
+    "lego_flash_decode": (_I, [_P] * 6 + [_I] * 10 + [_F, _F, _P]),
     "lego_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -144,7 +151,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float | None = None) -> torch.Tensor:
     """One-token decode on the card: q (B, Hq, 1, D) over the cache
     (B, Hkv, S, D) at position ``pos`` (0-d int32 tensor on q's device,
-    0 <= pos < S)."""
+    0 <= pos < S).  The splits come from the shapes alone, the workspace
+    from the caching allocator: nothing makes the host wait, so the call
+    can be captured in a CUDA graph.  Counts its calls in ``.launches`` and,
+    of those, the ones over more than one split in ``.split_launches``."""
     _check(q, k, v)
     B, Hq, Tq, D = q.shape
     _, Hkv, S, _ = k.shape
@@ -160,14 +170,21 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    group = Hq // Hkv
+    chunk, splits = decode_splits(B, Hkv, group, S, D, q.element_size())
+    ws = (torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else None)
     with torch.cuda.device(q.device):
         err = _lib().lego_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            pos.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, S, D, win, cap,
-            scale, _stream(q))
+            pos.data_ptr(), None if ws is None else ws.data_ptr(),
+            _DTYPES[q.dtype], B, Hq, Hkv, S, D, decode_rows(group), chunk,
+            splits, win, cap, scale, _stream(q))
     _raise_on(err, "flash decode")
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.split_launches += int(splits > 1)
     return o
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.split_launches = 0

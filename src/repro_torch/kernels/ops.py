@@ -54,7 +54,11 @@ def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
     """Single-token decode over a KV cache: q (B, Hq, 1, D), kv (B, Hkv, S, D).
     ``pos`` = the query's absolute position, an int or a 0-d int32 tensor on
     q's device (a tensor keeps the host from waiting on the device);
-    cache entries beyond it are masked (defaults to S − 1, full cache)."""
+    cache entries beyond it are masked (defaults to S − 1, full cache).  On
+    the card the kernel splits the cache across blocks (flash-decoding, the
+    splits from ``autotile.decode_splits``, never from ``pos``) and merges
+    the partial softmaxes in a combine pass, so with a tensor ``pos`` the
+    call can be captured in a CUDA graph."""
     if q.device.type == "cpu":
         return R.decode_attention_ref(q, k, v, window=window,
                                       softcap=softcap, scale=scale, pos=pos)

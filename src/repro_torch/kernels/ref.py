@@ -7,6 +7,8 @@ semantics, fp32 accumulation):
                          causal / sliding-window / logit-softcap / GQA
   chunked_attention_ref: the same, streamed over kv chunks
   decode_attention_ref : q (B, Hq, 1, D) over a KV cache (B, Hkv, S, D)
+  decode_attention_split_ref: the same, cut at the decode kernel's chunk
+                         edges and merged as its combine pass merges
   selective_scan_ref   : the Mamba S6 scan, a loop over L
   rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
 
@@ -16,6 +18,8 @@ These are what the CPU runs and what the CUDA kernels are held against.
 from __future__ import annotations
 
 import torch
+
+from .autotile import decode_splits
 
 NEG_INF = -1e30
 
@@ -154,6 +158,49 @@ def decode_attention_ref(q, k, v, *, window: int | None = None,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", _lowp_pv(p, q.dtype), v.float())
     return o.reshape(B, Hq, Tq, Dh).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, *, window: int | None = None,
+                               softcap: float | None = None,
+                               scale: float | None = None,
+                               pos: int | torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """``decode_attention_ref`` as the split-KV decode kernel computes it:
+    the cache cut into the chunks of ``autotile.decode_splits``, each
+    chunk's (m, l, acc) in fp32 over its unmasked keys (an empty chunk gives
+    m = NEG_INF, l = 0, acc = 0), merged as M = max m_i, l = Σ l_i e^(m_i −
+    M) (0 → 1), o = Σ acc_i e^(m_i − M) / l and rounded once.  P stays fp32,
+    as in the kernel.  For the tests: it checks the split and the merge."""
+    B, Hq, _, D = q.shape
+    _, Hkv, S, _ = k.shape
+    g = Hq // Hkv
+    pos = S - 1 if pos is None else pos
+    sc = scale if scale is not None else D ** -0.5
+    chunk, splits = decode_splits(B, Hkv, g, S, D, q.element_size())
+    qg = q.float().reshape(B, Hkv, g, D)
+    ms, ls, accs = [], [], []
+    for c in range(splits):
+        kc = k[:, :, c * chunk:(c + 1) * chunk].float()
+        vc = v[:, :, c * chunk:(c + 1) * chunk].float()
+        s = torch.einsum("bhgd,bhkd->bhgk", qg, kc) * sc
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        kpos = c * chunk + torch.arange(kc.shape[2], device=q.device)
+        keep = kpos <= pos
+        if window is not None:
+            keep &= kpos > pos - window
+        m = torch.where(keep, s, NEG_INF).amax(-1)
+        p = torch.where(keep, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bhkd->bhgd", p, vc))
+    m = torch.stack(ms)
+    M = m.amax(0)
+    w = torch.exp(m - M)
+    l = (torch.stack(ls) * w).sum(0)
+    acc = (torch.stack(accs) * w[..., None]).sum(0)
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).reshape(B, Hq, 1, D).to(q.dtype)
 
 
 def rwkv6_ref(r, k, v, w, u, s0=None):

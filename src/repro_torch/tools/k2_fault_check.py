@@ -1,20 +1,27 @@
-"""How the checks of the bf16 K2 prefill see a sound kernel and a faulty one.
+"""How the bf16 K2 checks see a sound kernel and a faulty one.
 
 Copies ``repro_torch`` (without its build directory) once per variant into a
 temporary directory and plants a fault in the copy's
 ``csrc/flash_attention.cu`` (the checkout's own files are never changed):
 
   * ``sound``      — no change;
-  * ``skip_tile``  — a q tile with 12 or more kv tiles skips the 6th (the
-    ring's barriers still turn over, only its softmax and P·V are left out);
-  * ``late_rows``  — rows at or past Tq/2 are stored 10% too large.
+  * ``skip_tile``  — prefill: a q tile with 12 or more kv tiles skips the
+    6th (the ring's barriers still turn over, only its softmax and P·V are
+    left out);
+  * ``late_rows``  — prefill: rows at or past Tq/2 are stored 10% too
+    large;
+  * ``skip_split`` — decode: the combine leaves out the partial of split
+    splits/2;
+  * ``stale_max``  — decode: the combine merges the last split's partial
+    without its e^(m_i - M) rescale.
 
-Each copy builds its library and runs, at the main paths' shapes (Whisper's
-cross step is also the Tq = 1 over 1500 keys edge case), the kernel picked by
-``ops.flash_attention`` against both yardsticks: the 3e-2 gate against the
-bf16 plain version and ``ref.attention_rel_err`` (fp32 plain version,
-relative to |want| plus the row's rms).  Prints one JSON line per variant and
-shape.  Needs the card:
+Each copy builds its library and runs, at the main paths' prefill shapes
+(Whisper's cross step is also the Tq = 1 over 1500 keys edge case) and
+decode shapes (``tools/k2_ab.py``'s), the kernel picked by
+``ops.flash_attention`` / ``ops.decode_attention`` against both
+yardsticks: the 3e-2 gate against the bf16 plain version and
+``ref.attention_rel_err`` (fp32 plain version, relative to |want| plus the
+row's rms).  Prints one JSON line per variant and shape.  Needs the card:
 
     PYTHONPATH=src python -m repro_torch.tools.k2_fault_check
 """
@@ -45,18 +52,16 @@ SKIP_FAULT = """    if (i == 5 && n_tiles >= 12) {
 LATE_ANCHOR = "    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);\n"
 LATE_FAULT = ("    const float inv = (row + 8 * r >= Tq / 2 ? 1.1f : 1.f) /\n"
               "                      (l[r] == 0.f ? 1.f : l[r]);\n")
-VARIANTS = {
-    "sound": None,
-    "skip_tile": (SKIP_ANCHOR, SKIP_FAULT + SKIP_ANCHOR),
-    "late_rows": (LATE_ANCHOR, LATE_FAULT),
+W_ANCHOR = "    const float ci = exp2f(w_sm[i] - mx);\n"
+VARIANTS = {   # variant: the (anchor, replacement) pairs it plants
+    "sound": (),
+    "skip_tile": ((SKIP_ANCHOR, SKIP_FAULT + SKIP_ANCHOR),),
+    "late_rows": ((LATE_ANCHOR, LATE_FAULT),),
+    "skip_split": ((W_ANCHOR, "    const float ci = i == splits / 2 ? 0.f : "
+                    "exp2f(w_sm[i] - mx);\n"),),
+    "stale_max": ((W_ANCHOR, "    const float ci = i == splits - 1 ? 1.f : "
+                   "exp2f(w_sm[i] - mx);\n"),),
 }
-# (name, B, Hq, Hkv, Tq, Tk, D, causal)
-SHAPES = (
-    ("Mistral-NeMo", 1, 32, 8, 2048, 2048, 128, True),
-    ("Phi-3-vision", 1, 32, 32, 2048, 2048, 96, True),
-    ("Whisper encoder", 4, 8, 8, 1500, 1500, 64, False),
-    ("Whisper cross step", 4, 8, 8, 1, 1500, 64, False),
-)
 
 
 def plant(variant: str, work: Path) -> Path:
@@ -65,13 +70,13 @@ def plant(variant: str, work: Path) -> Path:
     root = work / variant
     shutil.copytree(PKG, root / "repro_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
-    if VARIANTS[variant]:
-        anchor, text = VARIANTS[variant]
-        src = root / "repro_torch" / "csrc" / "flash_attention.cu"
-        code = src.read_text()
+    src = root / "repro_torch" / "csrc" / "flash_attention.cu"
+    code = src.read_text()
+    for anchor, text in VARIANTS[variant]:
         if code.count(anchor) != 1:
             raise RuntimeError(f"{variant}: anchor not found once in {src}")
-        src.write_text(code.replace(anchor, text))
+        code = code.replace(anchor, text)
+    src.write_text(code)
     return root
 
 
@@ -81,7 +86,9 @@ def measure(variant: str) -> None:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (decode_attention_cuda,
+                                                     flash_attention_cuda)
+    from repro_torch.tools.k2_ab import DECODE_SHAPES, SHAPES
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
@@ -98,6 +105,28 @@ def measure(variant: str) -> None:
         print(json.dumps({
             "variant": variant, "shape": name,
             "tensor_core": flash_attention_cuda.tensor_core_launches - before,
+            "max_abs_err": diff.max().item(),
+            "median_abs_want": want.abs().median().item(),
+            "gate_3e-2": "pass" if excess <= BF16_TOL else "fail",
+            "rel_err": rel,
+            "gate_rel": "pass" if rel <= BF16_REL_TOL else "fail"}),
+            flush=True)
+    for name, B, Hq, Hkv, S, D, pos, window in DECODE_SHAPES:
+        q = torch.randn((B, Hq, 1, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Hkv, S, D), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+        before = decode_attention_cuda.split_launches
+        got = ops.decode_attention(q, k, v, pos=pos_t, window=window)
+        want = R.decode_attention_ref(q, k, v, pos=pos,
+                                      window=window).float()
+        diff = (got.float() - want).abs()
+        excess = (diff - BF16_TOL * want.abs()).max().item()
+        rel = R.attention_rel_err(got, q, k, v, causal=True, offset=pos,
+                                  window=window)
+        print(json.dumps({
+            "variant": variant, "shape": f"decode {name}",
+            "split": decode_attention_cuda.split_launches - before,
             "max_abs_err": diff.max().item(),
             "median_abs_want": want.abs().median().item(),
             "gate_3e-2": "pass" if excess <= BF16_TOL else "fail",

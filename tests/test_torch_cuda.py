@@ -10,8 +10,9 @@ the output's largest magnitude: the kernel and cuBLAS sum K products in
 other orders), 2e-4 (attention) and 1e-4 (the RWKV-6 and Mamba scans),
 bf16 2e-2 (the GEMM) and 3e-2; the Mamba scan's bf16 y is rounded once
 from fp32 on both sides, so it is held to one bf16 ulp (2^-7 relative).
-The bf16 attention prefill is also held to three bf16 ulps of the plain
-version computed in fp32, relative to |want| plus its row's rms."""
+The bf16 attention prefill and decode are also held to three bf16 ulps of
+the plain version computed in fp32, relative to |want| plus its row's
+rms."""
 
 import dataclasses
 
@@ -21,7 +22,8 @@ import torch
 from repro_torch.configs import PORTED_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.autotile import GEMM_TILES, attention_built_tiles
+from repro_torch.kernels.autotile import (GEMM_TILES, attention_built_tiles,
+                                         decode_splits)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
@@ -35,9 +37,9 @@ from repro_torch.serve.engine import build_serve_step, generate
 pytestmark = pytest.mark.cuda
 
 TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
-# bf16 K2 prefill against the plain version in fp32 from the same inputs,
-# relative to |want| plus the row's rms (ref.attention_rel_err), as
-# chip_smoke.py holds it: three bf16 ulps
+# bf16 K2 prefill and decode against the plain version in fp32 from the
+# same inputs, relative to |want| plus the row's rms
+# (ref.attention_rel_err), as chip_smoke.py holds them: three bf16 ulps
 BF16_REL_TOL = 3 * 2.0 ** -7
 
 
@@ -196,21 +198,66 @@ def test_bf16_prefill_takes_the_tensor_core_kernel(card):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("window,softcap", [(None, None), (16, 30.0)])
-def test_decode_kernel_matches_plain(card, dtype, D, window, softcap):
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("S", [300, 4096, 4097])
+def test_decode_kernel_matches_plain(card, dtype, D, group, S):
+    """Split-KV decode against the plain version, with pos at 0, at the
+    chunk edges L - 1 and L and at S - 1, no window, a window of 16 with a
+    softcap, and a window of L/2 + 3 (it crosses a chunk edge or leaves
+    whole chunks out); bf16 also within 3 bf16 ulps of the fp32 plain
+    version.  One launch a call, a split launch when there are splits."""
     gen = torch.Generator(card).manual_seed(1)
-    q = _rand(gen, (2, 8, 1, D), dtype, card)
-    k = _rand(gen, (2, 2, 300, D), dtype, card)
-    v = _rand(gen, (2, 2, 300, D), dtype, card)
-    for pos in (0, 17, 299):
+    Hkv = 2
+    q = _rand(gen, (2, Hkv * group, 1, D), dtype, card)
+    k = _rand(gen, (2, Hkv, S, D), dtype, card)
+    v = _rand(gen, (2, Hkv, S, D), dtype, card)
+    L, splits = decode_splits(2, Hkv, group, S, D, q.element_size())
+    before = (decode_attention_cuda.launches,
+              decode_attention_cuda.split_launches)
+    calls = 0
+    for pos in sorted({0, L - 1, L, S - 1} & set(range(S))):
         pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
-        before = decode_attention_cuda.launches
-        got = ops.decode_attention(q, k, v, window=window, softcap=softcap,
-                                   pos=pos_t)
-        assert decode_attention_cuda.launches == before + 1
-        want = R.decode_attention_ref(q, k, v, window=window,
-                                      softcap=softcap, pos=pos)
-        _assert_close(got, want, TOLS[dtype])
+        for window, softcap in ((None, None), (16, 30.0), (L // 2 + 3, None)):
+            got = ops.decode_attention(q, k, v, window=window,
+                                       softcap=softcap, pos=pos_t)
+            calls += 1
+            want = R.decode_attention_ref(q, k, v, window=window,
+                                          softcap=softcap, pos=pos)
+            _assert_close(got, want, TOLS[dtype])
+            _assert_rel(got, q, k, v, causal=True, offset=pos, window=window,
+                        softcap=softcap)
+    assert (decode_attention_cuda.launches,
+            decode_attention_cuda.split_launches) == \
+        (before[0] + calls, before[1] + calls * (splits > 1))
+
+
+def test_decode_captured_in_a_cuda_graph_replays_each_pos(card):
+    """``ops.decode_attention`` captured once in a CUDA graph and replayed
+    with three positions written into the captured ``pos`` tensor equals
+    the eager call at each: the splits come from the shapes and nothing
+    makes the host wait, as the captured serve step will need."""
+    gen = torch.Generator(card).manual_seed(2)
+    q = _rand(gen, (4, 32, 1, 128), torch.bfloat16, card)
+    k = _rand(gen, (4, 8, 4096, 128), torch.bfloat16, card)
+    v = _rand(gen, (4, 8, 4096, 128), torch.bfloat16, card)
+    assert decode_splits(4, 8, 4, 4096, 128, 2)[1] > 1
+    pos = torch.zeros((), dtype=torch.int32, device=card)
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):   # warm-up: builds and loads the library
+        ops.decode_attention(q, k, v, pos=pos, window=1000)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, pos=pos, window=1000)
+    for p in (4095, 300, 256):
+        pos.fill_(p)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = ops.decode_attention(q, k, v, pos=pos, window=1000)
+        torch.testing.assert_close(out, eager, rtol=0, atol=0)
+        _assert_close(out, R.decode_attention_ref(q, k, v, pos=p,
+                                                  window=1000), 3e-2)
 
 
 def test_wrappers_reject_what_the_kernel_does_not_take(card):

@@ -231,6 +231,103 @@ def test_decode_ref_pos_before_end(pos, window, softcap):
 
 
 # ---------------------------------------------------------------------------
+# K2 decode's split-KV form (flash-decoding): the splits and the merge
+# ---------------------------------------------------------------------------
+
+# (B, Hkv, group, S, D, dtype_bytes): the main paths' decode shapes
+# (Mistral-NeMo, Phi-3-vision, Jamba, Gemma-2's window at 8192, phase 4's
+# 40-position cache), ragged, tiny and very long caches, fp32
+_DECODE_SHAPES = [
+    (4, 8, 4, 4096, 128, 2), (4, 32, 1, 4096, 96, 2),
+    (4, 8, 8, 4096, 128, 2), (4, 8, 2, 8192, 256, 2),
+    (4, 8, 4, 40, 128, 2), (2, 2, 4, 300, 64, 4), (2, 2, 4, 4097, 16, 2),
+    (1, 1, 1, 1, 16, 4), (1, 1, 1, 1 << 20, 128, 2),
+    (1, 2, 32, 4097, 256, 4), (8, 32, 1, 100000, 64, 2),
+    (1, 8, 5, 1024, 128, 2),
+]
+
+
+@pytest.mark.parametrize("B,Hkv,group,S,D,dtype_bytes", _DECODE_SHAPES)
+def test_decode_splits_cover_the_cache_and_fill_the_card(B, Hkv, group, S, D,
+                                                         dtype_bytes):
+    L, splits = autotile.decode_splits(B, Hkv, group, S, D, dtype_bytes)
+    assert splits >= 1 and splits == max(1, -(-S // L))
+    assert (splits - 1) * L < max(S, 1) <= splits * L   # chunks cover [0, S)
+    if S <= L:
+        assert splits == 1
+    assert splits <= autotile.DECODE_MAX_SPLITS
+    assert L & (L - 1) == 0
+    assert 2 * L * D * dtype_bytes >= autotile.DECODE_MIN_BYTES
+    blocks = (-(-group // autotile.decode_rows(group)) * Hkv * B * splits)
+    # at least two blocks a SM, unless the chunk is at its least or the
+    # cache is too short for that
+    smallest = 2 * (L // 2) * D * dtype_bytes < autotile.DECODE_MIN_BYTES
+    assert blocks >= autotile.DECODE_WAVES * autotile.H100_SMS or smallest
+    assert blocks < 2 * autotile.DECODE_WAVES * autotile.H100_SMS or \
+        splits == 1
+
+
+def test_decode_splits_at_mistral_nemo_fill_two_waves():
+    """Mistral-NeMo's decode over a 4096-position cache (B = 4, 32 q heads,
+    8 kv heads, head_dim 128, bf16): at least 2 blocks on each of 132
+    SMs, and phase 4's 40-position cache takes one split."""
+    L, splits = autotile.decode_splits(4, 8, 4, 4096, 128, 2)
+    assert autotile.decode_rows(4) == 4
+    assert 1 * 8 * 4 * splits >= 2 * 132
+    assert autotile.decode_splits(4, 8, 4, 40, 128, 2)[1] == 1
+
+
+def test_decode_splits_are_a_pure_function_of_the_shapes():
+    """No position among the arguments (it lives on the device), the same
+    answer every time and without the cache."""
+    import inspect
+    params = list(inspect.signature(autotile.decode_splits).parameters)
+    assert params == ["B", "Hkv", "group", "S", "D", "dtype_bytes"]
+    for shape in _DECODE_SHAPES:
+        got = autotile.decode_splits(*shape)
+        assert got == autotile.decode_splits(*shape)
+        assert got == autotile.decode_splits.__wrapped__(*shape)
+
+
+@pytest.mark.parametrize("group,rows", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                        (5, 8), (8, 8), (16, 8), (32, 8)])
+def test_decode_rows_take_the_whole_group_up_to_8(group, rows):
+    assert autotile.decode_rows(group) == rows
+
+
+# (where pos sits, window, softcap): chunk edges, a window that crosses
+# one, windows that leave whole chunks out, a softcap
+_SPLIT_CASES = [
+    ("0", None, None), ("L-1", None, None), ("L", None, None),
+    ("S-1", None, None), ("L", 100, None), ("L-1", 300, 30.0),
+    ("S-1", 50, None), ("S-1", None, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("where,window,softcap", _SPLIT_CASES)
+def test_decode_split_ref_equals_decode_ref(dtype, tol, group, where, window,
+                                            softcap):
+    """The cache cut at ``decode_splits``' own chunk edges and merged as
+    the combine kernel merges gives the port's and the reference's
+    ``decode_attention_ref``."""
+    S, D, Hkv = 1100, 16, 2
+    j, t = _both(_case(1, Hkv * group, Hkv, 1, S, D, seed=17), dtype)
+    L, splits = autotile.decode_splits(1, Hkv, group, S, D,
+                                       t[0].element_size())
+    assert splits >= 2
+    pos = {"0": 0, "L-1": L - 1, "L": L, "S-1": S - 1}[where]
+    kw = dict(window=window, softcap=softcap)
+    got = TR.decode_attention_split_ref(*t, pos=pos, **kw)
+    assert got.dtype == t[0].dtype and got.shape == t[0].shape
+    _close(got, np.asarray(TR.decode_attention_ref(*t, pos=pos, **kw)
+                           .float()), tol)
+    _close(got, JR.decode_attention_ref(*j, pos=pos, **kw), tol)
+
+
+# ---------------------------------------------------------------------------
 # ops on CPU tensors against the Pallas kernel in interpret mode
 # ---------------------------------------------------------------------------
 
