@@ -9,7 +9,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    spills;
 3. each CUDA kernel against its plain PyTorch version on the card: the
    GEMM over the reference's shapes, ragged, decode-shaped (M = 1, 7),
-   unaligned and one large product, in both dtypes; flash attention over
+   unaligned and one large product, in both dtypes, each aligned bf16 one
+   checked to have gone to the wgmma kernel, and the wgmma kernel's edge
+   shapes, split-K and a walk over more tiles than SMs at every built tile
+   over 1 and 3 splits, every bf16 product also against the fp32 product
+   relative to its row scale (``ref.gemm_rel_err``); flash attention over
    GQA / window / softcap / ragged / dtype / head_dim cases (head_dim 96
    causal, non-causal over 1500 keys, and in decode), every instantiation
    of each dtype's prefill kernel (bf16 on the tensor cores, fp32 on the
@@ -46,7 +50,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
       576-patch prefix + 1472 tokens and ``generate`` (batch 4, 16 + 24);
    f. ``ops.gemm``, K1's entry point (no model path runs it, as in the
       reference): the micro-bench's 512^3 fp32 product and Mistral-NeMo's
-      up-projection at T = 2048 in bf16;
+      up-projection at T = 2048 in bf16, the latter checked to have gone to
+      the wgmma kernel as the library reports it;
 5. fp32 consistency at Mistral-NeMo and RWKV-6 width (depth 2), at Jamba
    width (Mamba, Mamba + MoE and attention layers, capacity factor 8.0),
    at Whisper-base's full width and at Phi-3-vision's width (depth 2, with
@@ -59,7 +64,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    main paths' shapes beside its bound, its plain version and, where there
    is one, one PyTorch library call (a yardstick the port never calls),
    with the card's clock, power and temperature logged before and after;
-   K1 also at 512^3 fp32, K2 prefill also at Phi-3-vision's, Whisper's
+   K1 also at 512^3 fp32 and the decode-shaped (1 and 7) x 5120 . (5120 x
+   5120) in bf16 (as CUDA graphs, eager calls logged), with every built
+   tile's time at each, K2 prefill also at Phi-3-vision's, Whisper's
    encoder and Whisper's cross-attention step shapes, with every built
    tile's time at each and the output also held to the fp32 plain version;
    K2 decode at Mistral-NeMo's, Phi-3-vision's, Jamba's, Gemma-2's
@@ -82,9 +89,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12      # H100 SXM fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 F32_TOL, BF16_TOL = 2e-4, 3e-2
 SCAN_TOL = 1e-4             # tests/test_kernels.py's fp32 tolerance for scans
 GEMM_F32_TOL, GEMM_BF16_TOL = 1e-5, 2e-2   # ... and for the GEMM
@@ -103,6 +107,22 @@ BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
 # this file's cases, a kv tile skipped in long rows or late rows 10% off
 # read 0.08 and more; the 3e-2 gate alone does not see the latter
 BF16_REL_TOL = 3 * BF16_ULP
+# bf16 K1 against the product in fp32 from the same inputs, relative to
+# |want| plus the rms of want's row (ref.gemm_rel_err): one rounding reads
+# at most 2^-8; a k16 slice dropped or a stale ring stage at K = 5120 reads
+# a few hundredths, which the 2e-2 gate can miss where |want| is large
+GEMM_REL_TOL = 2 * BF16_ULP
+# K1 cases (M, K, N): the reference's shapes, ragged, decode-shaped, K and
+# N not multiples of 8, and the up-projection; then the wgmma kernel's
+# edges (tests/test_torch_cuda.py holds the same): M, N, K not multiples
+# of the tile, K below a k-step, M below a warpgroup's rows, M = 1, N = 8,
+# 512^3 (split-K in fp32), and more output tiles than SMs
+GEMM_CASES = ((32, 64, 32), (64, 32, 48), (16, 16, 128), (33, 70, 45),
+              (1, 5120, 5120), (7, 5120, 5120), (100, 77, 123),
+              (257, 1001, 250), (2048, 5120, 14336))
+GEMM_EDGES = ((200, 328, 392), (130, 40, 264), (33, 136, 520),
+              (1, 2000, 1000), (64, 8, 136), (129, 72, 8), (512, 512, 512),
+              (2176, 200, 4104))
 # K2 prefill edge cases, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap,
 # offset); tests/test_torch_cuda.py holds the same
 EDGE_CASES = (
@@ -157,7 +177,31 @@ def check_rel(name, got, q, k, v, kw, quiet=False) -> float:
     return err
 
 
-def check_scaled(name, got, want, tol) -> float:
+def check_gemm(name, got, x, w, quiet=False) -> float:
+    """A K1 output against the plain version on the same inputs: fp32
+    within 1e-5 of the output's scale; bf16 within 2e-2 and within
+    ``GEMM_REL_TOL`` of the product in fp32 (``ref.gemm_rel_err``).
+    Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    want = R.gemm_ref(x, w)
+    if got.dtype != want.dtype:
+        fail(f"{name}: dtype {got.dtype}, want {want.dtype}")
+    if want.dtype == torch.float32:
+        return check_scaled(name, got, want, GEMM_F32_TOL, quiet=quiet)
+    err = check_close(name, got, want, GEMM_BF16_TOL, quiet=True)
+    rel = R.gemm_rel_err(got, x, w)
+    if not quiet or rel > GEMM_REL_TOL:
+        log(f"  {name}: max_abs_err={err:.3e} (tol {GEMM_BF16_TOL:g}), "
+            f"rel_err={rel:.3e} (tol {GEMM_REL_TOL:g} of |want| + row rms, "
+            "fp32 product)")
+    if rel > GEMM_REL_TOL:
+        fail(f"{name}: outside {GEMM_REL_TOL:g} of the fp32 product")
+    return err
+
+
+def check_scaled(name, got, want, tol, quiet=False) -> float:
     """max |got - want| <= tol * max(1, max |want|): an fp32 product of K
     terms summed in another order than cuBLAS's differs near zero by far
     more than tol, so the tolerance is relative to the output's scale.
@@ -170,7 +214,9 @@ def check_scaled(name, got, want, tol) -> float:
              f"{tuple(want.shape)} {want.dtype}")
     err = (got.float() - want.float()).abs().max().item()
     scale = max(1.0, want.float().abs().max().item())
-    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g} x scale {scale:.3g})")
+    if not quiet or err > tol * scale:
+        log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g} x scale "
+            f"{scale:.3g})")
     if err > tol * scale:
         fail(f"{name}: outside tolerance {tol} x {scale:.3g}")
     return err
@@ -223,10 +269,15 @@ def on_tensor_cores(n: int) -> str:
     return f"K2 prefill on the tensor-core kernel: {tc} of {n}"
 
 
-def bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
-    """The least time (ms) for ``flops`` at ``peak`` FLOP/s and ``nbytes`` at
-    the HBM rate, and which of the two bounds it."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          dtype_bytes: int) -> tuple[float, str]:
+    """The least time (ms) for ``flops`` at the H100's peak rate for the
+    element size (dense bf16 tensor cores, fp32 outside them) and ``nbytes``
+    at its HBM3 rate, and which of the two bounds it.  The rates are
+    ``autotile``'s, which its split-K model uses too."""
+    from repro_torch.kernels.autotile import PEAK_BYTES, PEAK_FLOPS
+    t_ops = flops / PEAK_FLOPS[dtype_bytes]
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -277,9 +328,12 @@ def main() -> int:
                   if "spill stores" in ln and " 0 bytes spill stores" not in ln]
         regs = [int(ln.split("Used ")[1].split()[0])
                 for ln in text.splitlines() if "Used " in ln]
+        # ptxas's note that it serialized a kernel's wgmma (C7518), e.g.
+        # for a wgmma issued in a divergent branch
+        serial = sum("C7518" in ln for ln in text.splitlines())
         log(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
-            f"registers, {len(spills)} with spills (log: "
-            f"{_build.lib_path(name).with_suffix('.log')})")
+            f"registers, {len(spills)} with spills, {serial} with wgmma "
+            f"serialized (log: {_build.lib_path(name).with_suffix('.log')})")
 
     gen = torch.Generator(dev).manual_seed(0)
 
@@ -307,22 +361,36 @@ def main() -> int:
     # ---- 3. kernels against their plain versions ---------------------------
     log("phase 3 kernels vs plain")
     t0 = time.perf_counter()
-    # K1: (M, K, N); fp32 within 1e-5 of the output's scale, bf16 2e-2
+    # K1: (M, K, N); fp32 within 1e-5 of the output's scale, bf16 2e-2 and
+    # 2 bf16 ulps of the fp32 product (ref.gemm_rel_err).  Through ops.gemm
+    # (the picked tile and split; every aligned bf16 product on the wgmma
+    # kernel, as the library reports it), and the wgmma edge and split
+    # shapes also at every built tile over 1 and 3 splits
     for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for M, K, N in ((32, 64, 32), (64, 32, 48), (16, 16, 128),
-                        (33, 70, 45), (1, 5120, 5120), (7, 5120, 5120),
-                        (100, 77, 123), (257, 1001, 250),
-                        (2048, 5120, 14336)):
+        for (M, K, N), edge in [(c, False) for c in GEMM_CASES] + \
+                [(c, True) for c in GEMM_EDGES]:
             x, w = rand(M, K, dtype=dtype), rand(K, N, dtype=dtype)
             t = autotile.gemm_tiles(M, N, K, x.element_size())
+            splits = autotile.gemm_splits(M, N, K, t, x.element_size())
             name = (f"gemm {tag} ({M}x{K})@({K}x{N}) tiles=({t.bm},{t.bn},"
-                    f"{t.bk})")
-            got, want = ops.gemm(x, w), R.gemm_ref(x, w)
-            if dtype == torch.float32:
-                check_scaled(name, got, want, GEMM_F32_TOL)
-            else:
-                check_close(name, got, want, GEMM_BF16_TOL)
+                    f"{t.bk}) splits={splits}")
+            tc = gemm_cuda.wgmma_launches
+            got = ops.gemm(x, w)
+            aligned = dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+            if gemm_cuda.wgmma_launches - tc != int(aligned):
+                fail(f"{name}: {gemm_cuda.wgmma_launches - tc} launches of "
+                     f"the wgmma kernel, want {int(aligned)}")
+            runs = [(name, got)]
+            if edge:
+                for tb, tn, tk in autotile.GEMM_TILES[x.element_size()]:
+                    for sp in sorted({1, min(3, -(-K // tk))}):
+                        runs.append((f"  at ({tb},{tn},{tk}) splits={sp}",
+                                     gemm_cuda(x, w, bm=tb, bn=tn, bk=tk,
+                                               splits=sp)))
+            for label, out in runs:
+                check_gemm(label, out, x, w, quiet=label != name)
+            del x, w, got, runs
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         cases = [((32, 8, 128), 384, 384, True, None, None, 0),
@@ -479,6 +547,7 @@ def main() -> int:
             c.launches = 0
         flash_attention_cuda.tensor_core_launches = 0
         decode_attention_cuda.split_launches = 0
+        gemm_cuda.wgmma_launches = 0
 
     def launches():
         """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
@@ -583,13 +652,14 @@ def main() -> int:
     if gemm_launches != (0, 0, 0, 0, len(gemm_path)):
         fail(f"ops.gemm launches {gemm_launches}, want "
              f"{(0, 0, 0, 0, len(gemm_path))}")
+    if gemm_cuda.wgmma_launches != 1:
+        fail(f"{gemm_cuda.wgmma_launches} of ops.gemm's launches took the "
+             "wgmma kernel, want 1 (the bf16 product)")
+    log("  K1 on the wgmma kernel: 1 of 1 bf16 launch (the fp32 product "
+        "on the CUDA cores)")
     for (x, w), out in zip(operands, outs):
-        name = (f"ops.gemm ({x.shape[0]}x{x.shape[1]})@({w.shape[0]}x"
-                f"{w.shape[1]}) {str(x.dtype)[6:]}")
-        if x.dtype == torch.float32:
-            check_scaled(name, out, R.gemm_ref(x, w), GEMM_F32_TOL)
-        else:
-            check_close(name, out, R.gemm_ref(x, w), GEMM_BF16_TOL)
+        check_gemm(f"ops.gemm ({x.shape[0]}x{x.shape[1]})@({w.shape[0]}x"
+                   f"{w.shape[1]}) {str(x.dtype)[6:]}", out, x, w)
     del operands, outs
 
     # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
@@ -692,30 +762,50 @@ def main() -> int:
     log(f"  card at the start: {_clocks()}")
     bf = torch.bfloat16
     kernels = []
-    # K1 at the micro-bench's 512^3 in fp32 (logged) and at Mistral-NeMo's
-    # up-projection at T = 2048 in bf16 (the row); 2MNK flops, each operand
-    # read and the product written once; the library call is torch.matmul
-    # (cuBLAS, TF32 off)
-    for (M, K, N, dt), keep in zip(gemm_path, (False, True)):
+    # K1 at Mistral-NeMo's up-projection at T = 2048 in bf16 (the row, with
+    # every built tile's time), the micro-bench's 512^3 in fp32 and the
+    # decode-shaped (1 and 7) x 5120 . (5120 x 5120) in bf16 (logged);
+    # 2MNK flops, each operand read and the product written once; the
+    # library call is torch.matmul (cuBLAS, TF32 off).  The small products
+    # (split across blocks) are also timed as CUDA graphs: their eager
+    # calls are paced by the host
+    for tag, (M, K, N, dt) in (
+            ("Mistral-NeMo's up-projection", gemm_path[1]),
+            ("the micro-bench's shape", gemm_path[0]),
+            ("decode shape M=1", (1, cfg.d_model, cfg.d_model, bf)),
+            ("decode shape M=7", (7, cfg.d_model, cfg.d_model, bf))):
         x, w = rand(M, K, dtype=dt), rand(K, N, dtype=dt)
-        t = autotile.gemm_tiles(M, N, K, x.element_size())
-        kern = lambda: gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk)
+        eb = x.element_size()
+        t = autotile.gemm_tiles(M, N, K, eb)
+        splits = autotile.gemm_splits(M, N, K, t, eb)
+        kern = lambda: gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk,
+                                 splits=splits)
         plain = lambda: R.gemm_ref(x, w)
         lib = lambda: torch.matmul(x, w)
-        if dt == torch.float32:
-            err = check_scaled("gemm fp32 at the micro-bench's shape", kern(),
-                               plain(), GEMM_F32_TOL)
-        else:
-            err = check_close("gemm at Mistral-NeMo's up-projection shape",
-                              kern(), plain(), GEMM_BF16_TOL)
-        b_ms, b_by = bound(2 * M * N * K, x.element_size() * (M * K + K * N
-                                                             + M * N),
-                           PEAK_F32_FLOPS if dt == torch.float32
-                           else PEAK_BF16_FLOPS)
+        err = check_gemm(f"gemm at {tag}", kern(), x, w)
+        flops = 2 * M * N * K
+        nbytes = eb * (M * K + K * N + M * N)
+        b_ms, b_by = bound(flops, nbytes, eb)
+        small = M * N < 2 ** 20
         row = _row("gemm", gemm_launches[4], err, kern, plain, lib, b_ms,
-                   b_by, f"({M}x{K})@({K}x{N}) {str(dt)[6:]} tiles=({t.bm},"
-                   f"{t.bn},{t.bk})", **GEMM)
-        if keep:
+                   b_by, f"{tag}: ({M}x{K})@({K}x{N}) {str(dt)[6:]} tiles=("
+                   f"{t.bm},{t.bn},{t.bk}) splits={splits}"
+                   + ("; ms and library ms as CUDA graphs" if small else ""),
+                   graph=small, **GEMM)
+        log(f"    {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{nbytes / row['ms'] / 1e6:.0f} GB/s, "
+            f"{b_ms / row['ms'] * 100:.1f}% of the bound")
+        if small:
+            log(f"    eager (host-paced) calls: kernel {time_ms(kern):.4f} "
+                f"ms, torch.matmul {time_ms(lib):.4f} ms")
+        for tb, tn, tk in autotile.GEMM_TILES[eb]:
+            sp = autotile.gemm_splits(M, N, K, (tb, tn, tk), eb)
+            ms = time_ms(lambda: gemm_cuda(x, w, bm=tb, bn=tn, bk=tk,
+                                           splits=sp), graph=small)
+            picked = " (picked)" if (tb, tn, tk) == (t.bm, t.bn, t.bk) else ""
+            log(f"    tiles ({tb},{tn},{tk}) splits={sp}{picked}: {ms:.4f} "
+                f"ms, {flops / ms / 1e9:.1f} TFLOP/s")
+        if tag == "Mistral-NeMo's up-projection":
             kernels.append(row)
         del x, w
     # K2 prefill in bf16 (the tensor-core kernel) at the main paths' shapes:
@@ -748,7 +838,7 @@ def main() -> int:
         pairs = Tqp * (Tqp + 1) / 2 if causal else Tqp * Tkp
         flops = 4 * Bp * Hp * Dp * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        b_ms, b_by = bound(flops, nbytes, 2)
         row = _row("flash_attention_prefill",
                    fwd_launches[0] if tag == "Mistral-NeMo" else None, err,
                    kern, plain, _sdpa(q, k, v, causal=causal), b_ms, b_by,
@@ -803,7 +893,7 @@ def main() -> int:
         rows = pos_i + 1 - lo
         flops = 4 * Bd * Hqd * Dd * rows
         nbytes = 2 * (2 * q.numel() + 2 * Bd * Hkvd * rows * Dd)
-        b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+        b_ms, b_by = bound(flops, nbytes, 4)
         chunk, splits = autotile.decode_splits(Bd, Hkvd, Hqd // Hkvd, S, Dd,
                                                2)
         row = _row("flash_attention_decode",
@@ -834,7 +924,7 @@ def main() -> int:
     # S_last written in fp32
     flops = 4 * Bw * Hw * Tw * Dw * Dw
     nbytes = 2 * (5 * Bw * Hw * Tw * Dw + Hw * Dw) + 4 * Bw * Hw * Dw * Dw
-    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    b_ms, b_by = bound(flops, nbytes, 4)
     kernels.append(_row("rwkv6_wkv", rwkv_fwd_launches[2], err, kern, plain,
                         None, b_ms, b_by,
                         f"B={Bw} H={Hw} T={Tw} Dk=Dv={Dw} bf16", **RWKV,
@@ -857,7 +947,7 @@ def main() -> int:
     flops = 6 * Bs * Ls * Ds * Ns
     nbytes = (2 * (3 * Bs * Ls * Ds + 2 * Bs * Ls * Ns)
               + 4 * (Ds * Ns + Ds + Bs * Ds * Ns))
-    b_ms, b_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    b_ms, b_by = bound(flops, nbytes, 4)
     kernels.append(_row("ssm_scan", jamba_fwd_launches[3], err, kern, plain,
                         None, b_ms, b_by,
                         f"Bt={Bs} L={Ls} Dm={Ds} N={Ns} bf16", **SSM,
@@ -942,7 +1032,7 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
             f"prompt tok/s), logits finite, launches {fwd_launches} "
             f"({on_tensor_cores(fwd_launches[0])}); weight "
             f"products {mm_flops / 1e12:.2f} TFLOP, bound "
-            f"{mm_flops / PEAK_BF16_FLOPS * 1e3:.2f} ms at the bf16 peak")
+            f"{bound(mm_flops, 0, 2)[0]:.2f} ms at the bf16 peak")
 
         B, Tp, new = 4, 16, 24
         prompts = torch.randint(0, cfg.vocab_size, (B, Tp), generator=gen,
@@ -966,7 +1056,7 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
                  "token out of range")
         log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
             f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps; "
-            f"weight-read bound {weight_bytes / PEAK_BYTES * 1e3:.2f} ms), "
+            f"weight-read bound {bound(0, weight_bytes, 2)[0]:.2f} ms), "
             f"{B * new / gen_s:.1f} tok/s, launches {gen_launches}, K2 "
             f"decode calls over more than one split "
             f"{decode_attention_cuda.split_launches}")
@@ -1061,7 +1151,7 @@ def _long_cache(cfg, params, dev, gen, reset, launches) -> None:
     log(f"  decode step B={r['B']} over a {r['S']}-position cache "
         f"({r['kv_bytes'] / 2**30:.2f} GiB of KV beside "
         f"{weight_bytes / 2**30:.2f} GiB of weights; bound "
-        f"{(weight_bytes + r['kv_bytes']) / PEAK_BYTES * 1e3:.2f} ms): host "
+        f"{bound(0, weight_bytes + r['kv_bytes'], 2)[0]:.2f} ms): host "
         f"clock {', '.join(f'{t:.2f}' for t in r['host_ms'])} ms (median "
         f"{host[len(host) // 2]:.2f}), launches {launches()} (with a "
         f"warm-up and the profiled step), every K2 decode call split "
@@ -1294,7 +1384,7 @@ def _step_vs_weights(name, params, fn) -> None:
     nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     ms = time_ms(fn)
     log(f"  {name}: {ms:.4f} ms, weight-read bound "
-        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms ({nbytes / 1e9:.2f} GB)")
+        f"{bound(0, nbytes, 2)[0]:.4f} ms ({nbytes / 1e9:.2f} GB)")
 
 
 def _clocks() -> str:

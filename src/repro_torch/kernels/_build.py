@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``build/lib<name>-<hash>.so`` inside the package (a directory that
-``.gitignore`` lists); the hash covers the source, the flags and the header
+``.gitignore`` lists); the hash covers the source, every shared header
+``csrc/*.cuh`` (which any source may include), the flags and the header
 generated for it, so an edit never loads a stale library.  A source whose
-instantiations Python decides (``flash_attention``: the attention tiles of
+instantiations Python decides (``flash_attention``: the attention tiles,
+``gemm``: the GEMM tiles and ring depths of
 :mod:`repro_torch.kernels.autotile`) gets that header written beside its
 library and included before it (``-include``).  No PyTorch header is
 compiled, which keeps a build to seconds.  Nothing here runs at import time.
@@ -52,13 +54,18 @@ def header(name: str) -> str:
     if name == "flash_attention":
         from .autotile import attention_tiles_header
         return attention_tiles_header()
+    if name == "gemm":
+        from .autotile import gemm_tiles_header
+        return gemm_tiles_header()
     return ""
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            + header(name).encode()).hexdigest()
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for shared in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(shared.name.encode() + shared.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode() + header(name).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

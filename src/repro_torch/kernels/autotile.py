@@ -7,35 +7,48 @@ GEMM, divided by the share of the grid that ragged edge tiles waste, and
 set fitting on chip.  What changes is the chip: the budget is one thread
 block's shared memory on an H100 (227 KB), counted as the CUDA kernels lay
 it out, and the candidates are only the tile shapes the kernels are built
-for, by element size (``GEMM_TILES``, ``ATTN_TILES``).  Attention in fp32
+for, by element size (``GEMM_TILES``, ``ATTN_TILES``).  A GEMM tile is also
+scored by how well it and its split of K (``gemm_splits``) fill the card's
+132 SMs, which a TPU's sequential grid never had to.  Attention in fp32
 runs on the CUDA cores (``bq`` rows with four threads per row, ``bk``
 columns in steps of 16); in bf16 on the tensor cores (a warpgroup per 64
 q rows, ``bk`` keys per ``wgmma``, K and V through a ring of
 ``ATTN_STAGES`` tiles), where a tile is built only if its layout fits the
 shared memory and its accumulators the registers a thread gets.  This
-module is where the attention tiles are decided: ``_build`` writes
-``attention_tiles_header()`` into the header that ``nvcc`` includes before
-``csrc/flash_attention.cu``, which instantiates exactly those tiles.
+module is where the tiles are decided: ``_build`` writes
+``attention_tiles_header()`` and ``gemm_tiles_header()`` into the headers
+that ``nvcc`` includes before ``csrc/flash_attention.cu`` and
+``csrc/gemm.cu``, which instantiate exactly those tiles.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from dataclasses import dataclass
+from typing import NamedTuple
 
 SMEM_BYTES = 227 * 1024   # dynamic shared memory one block may use (sm_90)
 
 # (bm, bn, bk) instantiated in csrc/gemm.cu, by element size in bytes: fp32
-# on the CUDA cores (bm/16 x bn/16 outputs per thread, 256 threads), bf16
-# on the tensor cores (a warp per min(bm, 64) x 32 slice)
+# on the CUDA cores (bm/16 x bn/16 outputs per thread, 256 threads, a
+# two-stage cp.async ring); bf16 on the tensor cores, wgmma from a TMA ring
+# of gemm_stages() stages (two consumer warpgroups of 64 rows, 128 bytes of
+# K a row), or mma.sync at the same tile for operands TMA cannot take
 GEMM_TILES = {
     4: ((16, 64, 16), (16, 128, 16), (64, 64, 16), (64, 128, 16),
         (128, 128, 16)),
-    2: ((16, 64, 32), (16, 128, 32), (64, 64, 32), (64, 128, 32),
-        (128, 128, 32)),
+    2: ((128, 128, 64), (128, 256, 64)),
 }
-GEMM_STAGES = 2
+GEMM_STAGES = 2          # the cp.async ring of the CUDA-core kernels
+GEMM_MAX_STAGES = 5      # the deepest TMA ring of the wgmma kernel
+GEMM_EPI_COLS = 64       # output columns its epilogue stages a pass
+# split-K: a split takes at least GEMM_SPLIT_MIN_STEPS k-steps, and its own
+# work takes at least as long as writing its fp32 partial and reading it
+# back (gemm_max_splits), by the H100's published rates: dense bf16 tensor
+# cores, fp32 outside them, HBM3
+GEMM_SPLIT_MIN_STEPS = 4
+PEAK_FLOPS = {2: 989e12, 4: 67e12}
+PEAK_BYTES = 3.35e12
 
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head_dims K2 is built for
 
@@ -61,35 +74,136 @@ ATTN_STAGES = 2        # K/V ring depth of the tensor-core kernel
 ATTN_SPARE_REGS = 8    # registers a thread needs beside its accumulators
 
 
-@dataclass(frozen=True)
-class GemmTiles:
+class GemmTiles(NamedTuple):
     bm: int
     bn: int
     bk: int
 
 
+def _gemm_staging_bytes(bm: int, bn: int) -> int:
+    """The bf16 epilogue's staging tile: bm rows of min(bn, GEMM_EPI_COLS)
+    columns."""
+    return 2 * bm * min(bn, GEMM_EPI_COLS)
+
+
+def gemm_stages(bm: int, bn: int, bk: int, dtype_bytes: int) -> int:
+    """Ring depth of the GEMM kernel of the element size at this tile: the
+    cp.async double buffer in fp32; in bf16 the TMA ring, as deep as fits
+    the card's shared memory beside the epilogue's staging tile, the
+    barriers and the swizzle's alignment, at most ``GEMM_MAX_STAGES``."""
+    if dtype_bytes == 2:
+        stage = 2 * (bm * bk + bk * bn) + 16
+        return min(GEMM_MAX_STAGES, (SMEM_BYTES - 1024
+                                     - _gemm_staging_bytes(bm, bn)) // stage)
+    return GEMM_STAGES
+
+
 def gemm_smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: int,
-                    stages: int = GEMM_STAGES) -> int:
-    """Shared memory of one GEMM block, as ``csrc/gemm.cu`` lays it out:
-    ``stages`` copies of the X tile (bm rows) and the W tile (bk rows), each
-    row padded by one 16-byte chunk, in the input dtype."""
+                    stages: int | None = None) -> int:
+    """Shared memory of one GEMM block, as ``csrc/gemm.cu`` lays it out, at
+    ``stages`` (default: ``gemm_stages``).  fp32 (``F32Tile``): copies of
+    the X tile (bm rows) and the W tile (bk rows), each row padded by one
+    16-byte chunk.  bf16 (``WgLayout``): the X and W tiles of each stage,
+    the epilogue's staging tile, a full and an empty barrier a stage (8
+    bytes each), and 1024 bytes to align the base to the 128-byte
+    swizzle's period."""
+    if stages is None:
+        stages = gemm_stages(bm, bn, bk, dtype_bytes)
+    if dtype_bytes == 2:
+        return (stages * (2 * (bm * bk + bk * bn) + 16)
+                + _gemm_staging_bytes(bm, bn) + 1024)
     pad = 16 // dtype_bytes
     return stages * dtype_bytes * (bm * (bk + pad) + bk * (bn + pad))
 
 
+def _tile_count(M: int, N: int, bm: int, bn: int) -> int:
+    return -(-M // bm) * -(-N // bn)
+
+
+def _split_costs(M: int, N: int, tile, dtype_bytes: int) -> tuple:
+    """(seconds per row of K, seconds of the partial) of one work unit at
+    this tile, by the card's published rates: a row of K costs the unit's
+    products (2·m·n flops at the dtype's peak) or its share of the
+    operands' bytes at the HBM rate (each of X's rows and W's panel read
+    once over the tiles that share them), whichever is longer; the partial
+    is m·n fp32 values written and read back.  m, n: the tile's rows below
+    M and columns below N."""
+    bm, bn, _ = tile
+    m, n = min(bm, M), min(bn, N)
+    tm, tn = -(-M // bm), -(-N // bn)
+    per_k = max(2 * m * n / PEAK_FLOPS[dtype_bytes],
+                (n / tm + m / tn) * dtype_bytes / PEAK_BYTES)
+    return per_k, 8 * m * n / PEAK_BYTES
+
+
+def gemm_max_splits(M: int, N: int, K: int, tile, dtype_bytes: int) -> int:
+    """The most ranges K may be split into at the tile (bm, bn, bk): each
+    takes at least ``GEMM_SPLIT_MIN_STEPS`` k-steps (its start-up, the ring
+    filling, stays small beside its loop), and its own work takes at least
+    as long as its partial (``_split_costs``); never more than the
+    k-steps."""
+    bk = tile[2]
+    per_k, partial = _split_costs(M, N, tile, dtype_bytes)
+    k_floor = max(GEMM_SPLIT_MIN_STEPS * bk, math.ceil(partial / per_k))
+    return max(1, min(-(-K // bk), K // k_floor))
+
+
+def gemm_fill(units: int) -> float:
+    """The share of the SM slots that ``units`` equal blocks keep busy over
+    the waves they take on ``H100_SMS`` SMs: 1 when they fill every wave."""
+    return units / (H100_SMS * -(-units // H100_SMS))
+
+
+@functools.cache
+def gemm_splits(M: int, N: int, K: int, tile, dtype_bytes: int) -> int:
+    """How many ranges the K sweep is split into at this tile, from the
+    shapes alone.  One when the output tiles already fill the SMs.  Else,
+    among the counts that make tiles x splits at least ``H100_SMS`` and no
+    more than ``gemm_max_splits``, the one of least modelled time
+
+        ceil(tiles x splits / H100_SMS) x (K / splits x per_k + partial),
+
+    the waves times one unit's work and partial (``_split_costs``; the
+    fewest splits on a tie).  Where the floor stops short of the SMs, as
+    many as it allows.  tile: (bm, bn, bk)."""
+    if min(M, N) < 1 or K < 1:
+        return 1
+    tiles = _tile_count(M, N, tile[0], tile[1])
+    if tiles >= H100_SMS:
+        return 1
+    most = gemm_max_splits(M, N, K, tile, dtype_bytes)
+    least = -(-H100_SMS // tiles)
+    if most < least:
+        return most
+    per_k, partial = _split_costs(M, N, tile, dtype_bytes)
+    return min(range(least, most + 1),
+               key=lambda s: (-(-tiles * s // H100_SMS)
+                              * (K / s * per_k + partial), s))
+
+
+@functools.cache
 def gemm_tiles(M: int, N: int, K: int, dtype_bytes: int = 2,
                smem_budget: int = SMEM_BYTES) -> GemmTiles:
-    """(bm, bn, bk) for the GEMM kernel: among the built tiles of the dtype,
-    the highest intensity per ragged waste whose stages fit
-    ``smem_budget``, with no tile side wider than the problem needs (the
-    tile of the smallest built sides always qualifies).  Raises if none
-    fits."""
+    """(bm, bn, bk) for the GEMM kernel of the element size.  The
+    candidates are its built tiles whose ring fits ``smem_budget`` and
+    whose sides are no wider than the problem needs (the tile of the
+    smallest built sides always qualifies).  Among those whose tiles x
+    ``gemm_splits`` fill the ``H100_SMS`` SMs (all of them if none does),
+    the one with the highest
+
+        intensity / ragged waste x fill,
+
+    LEGO's objective — ``bm·bn·bk / (bm·bk + bk·bn + bm·bn)`` over the share
+    of the grid's area that lies inside the product — times the share of
+    the SM slots that the tiles and splits keep busy over their waves
+    (``gemm_fill``).  Raises if none fits.  Cached: ``ops.gemm`` asks on
+    every call."""
     if dtype_bytes not in GEMM_TILES:
         raise ValueError(f"no GEMM tiles built for {dtype_bytes}-byte "
                          f"elements (built: {sorted(GEMM_TILES)})")
     tiles = GEMM_TILES[dtype_bytes]
     small = [min(t[i] for t in tiles) for i in range(3)]
-    best, best_score = None, -1.0
+    scored = []
     for bm, bn, bk in tiles:
         if bm > max(small[0], M) or bn > max(small[1], N) \
                 or bk > max(small[2], K):
@@ -99,12 +213,30 @@ def gemm_tiles(M: int, N: int, K: int, dtype_bytes: int = 2,
         ai = (bm * bn * bk) / (bm * bk + bk * bn + bm * bn)
         waste = (math.ceil(M / bm) * bm / max(M, 1)
                  * math.ceil(N / bn) * bn / max(N, 1))
-        if ai / waste > best_score:
-            best_score, best = ai / waste, GemmTiles(bm, bn, bk)
-    if best is None:
+        units = _tile_count(M, N, bm, bn) * gemm_splits(
+            M, N, K, (bm, bn, bk), dtype_bytes)
+        scored.append((units >= H100_SMS, ai / waste * gemm_fill(units),
+                       GemmTiles(bm, bn, bk)))
+    if not scored:
         raise ValueError(f"no GEMM tile fits {smem_budget} bytes of shared "
                          f"memory at {dtype_bytes}-byte elements")
-    return best
+    fills = any(f for f, _, _ in scored)
+    return max((s for s in scored if s[0] == fills),
+               key=lambda s: s[1])[2]
+
+
+def gemm_tiles_header() -> str:
+    """The header ``nvcc`` includes before ``csrc/gemm.cu``: X-macro lists
+    of the fp32 tiles, X(bm, bn, bk), and of the bf16 tiles with their ring
+    depth, X(bm, bn, bk, stages), and the columns the bf16 epilogue stages a
+    pass (``GEMM_EPI_COLS``, which ``gemm_smem_bytes`` counts)."""
+    f32 = " ".join(f"X({bm}, {bn}, {bk})" for bm, bn, bk in GEMM_TILES[4])
+    bf16 = " ".join(f"X({bm}, {bn}, {bk}, {gemm_stages(bm, bn, bk, 2)})"
+                    for bm, bn, bk in GEMM_TILES[2])
+    return ("// written by repro_torch.kernels.autotile; do not edit\n"
+            f"#define LEGO_GEMM_F32_TILES(X) {f32}\n"
+            f"#define LEGO_GEMM_BF16_TILES(X) {bf16}\n"
+            f"#define LEGO_GEMM_EPI_COLS {GEMM_EPI_COLS}\n")
 
 
 def attention_smem_bytes(bq: int, bk: int, D: int, dtype_bytes: int) -> int:

@@ -6,8 +6,9 @@ version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
 kernel, whose wrapper launches it or raises.  Nothing falls back.  The
 kernels mask ragged shapes themselves, so unlike the reference's Pallas
 path these wrappers pad nothing and assert no multiple of a tile (``gemm``
-takes any M, N and K with ``gemm_tiles``' tiles as they are, where the
-reference pads X and W to its tiles and slices the product back; the
+takes any M, N and K with ``gemm_tiles``' tiles and ``gemm_splits``' split
+of K as they are, where the reference pads X and W to its tiles and slices
+the product back; the
 ragged non-causal attention case is masked, where the reference's padding
 leaked weight onto zero keys; ``rwkv6`` takes any T, where the reference
 asserts ``T % 64 == 0`` above 64; ``ssm_scan`` takes any L and Dm, where
@@ -30,7 +31,11 @@ __all__ = ["gemm", "flash_attention", "decode_attention", "ssm_scan",
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (M, K) @ w (K, N) → (M, N) in x's dtype, accumulated in fp32."""
+    """x (M, K) @ w (K, N) → (M, N) in x's dtype, accumulated in fp32.  On
+    the card the K sweep is split across blocks (``gemm_splits``, from the
+    shapes alone) when the output tiles alone would not fill the SMs; the
+    workspace comes from the caching allocator, so the call can be
+    captured in a CUDA graph."""
     if x.device.type == "cpu":
         return R.gemm_ref(x, w)
     t = gemm_tiles(x.shape[0], w.shape[-1], x.shape[-1], x.element_size())

@@ -30,6 +30,19 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() @ b.float()).to(a.dtype)
 
 
+def gemm_rel_err(got: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> float:
+    """How far a bf16 product ``got`` of a (M, K) and b (K, N) is from the
+    product in fp32 of the same inputs: the largest |got - want| /
+    (|want| + rms(want's row)).  One rounding to bf16 reads at most 2^-8;
+    a k16 slice dropped or a stale ring stage at K = 5120 moves a row by a
+    few hundredths of its rms, which the 2e-2 gate can miss where |want|
+    is large."""
+    want = gemm_ref(a.float(), b.float())
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    den = (want.abs() + rms).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got.float() - want).abs() / den).max().item()
+
+
 def _mask(tq: int, tk: int, *, causal: bool, window: int | None,
           offset: int = 0, device=None) -> torch.Tensor:
     """(tq, tk) boolean mask. ``offset`` = absolute position of q row 0 minus

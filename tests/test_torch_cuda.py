@@ -23,7 +23,8 @@ from repro_torch.configs import PORTED_IDS, get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.autotile import (GEMM_TILES, attention_built_tiles,
-                                         decode_splits)
+                                         decode_splits, gemm_splits,
+                                         gemm_tiles)
 from repro_torch.kernels.flash_attention import (HEAD_DIMS,
                                                  decode_attention_cuda,
                                                  flash_attention_cuda)
@@ -347,6 +348,134 @@ def test_gemm_wrapper_rejects_what_the_kernel_does_not_take(card):
         gemm_cuda(x, w, bm=32, bn=64, bk=16)
     with pytest.raises(ValueError, match="2-D"):
         gemm_cuda(x[None], w, bm=16, bn=64, bk=16)
+    xb, wb = x.bfloat16(), w.bfloat16()
+    for tile in ((16, 64, 32), (128, 128, 32), (64, 256, 64), (128, 192, 64)):
+        with pytest.raises(ValueError, match="not built"):
+            gemm_cuda(xb, wb, bm=tile[0], bn=tile[1], bk=tile[2])
+    with pytest.raises(ValueError, match="splits"):
+        gemm_cuda(xb, wb, bm=128, bn=128, bk=64, splits=2)   # one k-step
+    with pytest.raises(ValueError, match="splits"):
+        gemm_cuda(x, w, bm=16, bn=64, bk=16, splits=0)
+
+
+def _gemm_rel(got, x, w):
+    """bf16: within 2 bf16 ulps of the fp32 product, relative to |want|
+    plus the row's rms (ref.gemm_rel_err), as chip_smoke.py holds it."""
+    if got.dtype == torch.bfloat16:
+        err = R.gemm_rel_err(got, x, w)
+        assert err <= 2 * 2.0 ** -7, f"gemm rel_err {err:.3e}"
+
+
+# the wgmma kernel's edges: M, N, K not multiples of the tile (K, N
+# multiples of 8, as TMA needs), K below one 64-deep k-step, M below one
+# warpgroup's 64 rows, M = 1
+WGMMA_EDGES = [(200, 392, 328), (130, 264, 40), (33, 520, 136), (1, 1000, 2000),
+               (64, 136, 8), (129, 8, 72)]
+
+
+@pytest.mark.parametrize("tile", GEMM_TILES[2])
+@pytest.mark.parametrize("M,N,K", WGMMA_EDGES)
+def test_every_wgmma_tile_at_ragged_aligned_shapes(card, tile, M, N, K):
+    gen = torch.Generator(card).manual_seed(M + N + K)
+    x = _rand(gen, (M, K), torch.bfloat16, card)
+    w = _rand(gen, (K, N), torch.bfloat16, card)
+    want = R.gemm_ref(x, w)
+    steps = -(-K // tile[2])
+    for splits in sorted({1, min(3, steps),
+                          gemm_splits(M, N, K, tile, 2)}):
+        before = gemm_cuda.wgmma_launches
+        got = gemm_cuda(x, w, bm=tile[0], bn=tile[1], bk=tile[2],
+                        splits=splits)
+        assert gemm_cuda.wgmma_launches == before + 1
+        _gemm_close(got, want, torch.bfloat16)
+        _gemm_rel(got, x, w)
+
+
+@pytest.mark.parametrize("tile", GEMM_TILES[2])
+def test_wgmma_persistent_walk_over_more_tiles_than_blocks(card, tile):
+    """More output tiles than SMs: each block walks several tiles of the
+    grouped raster, the ring carrying on from one tile to the next."""
+    M, N, K = 2176, 4104, 200   # ragged in M and N, 17 x 17+ tiles
+    assert -(-M // tile[0]) * -(-N // tile[1]) > \
+        torch.cuda.get_device_properties(card).multi_processor_count
+    gen = torch.Generator(card).manual_seed(3)
+    x = _rand(gen, (M, K), torch.bfloat16, card)
+    w = _rand(gen, (K, N), torch.bfloat16, card)
+    got = gemm_cuda(x, w, bm=tile[0], bn=tile[1], bk=tile[2], splits=1)
+    _gemm_close(got, R.gemm_ref(x, w), torch.bfloat16)
+    _gemm_rel(got, x, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,K", [(512, 512, 512), (1, 5120, 5120),
+                                   (7, 5120, 5120)])
+def test_gemm_split_k_is_deterministic(card, dtype, M, N, K):
+    """The split-K path (autotile's split, and 4 splits at 512^3 where the
+    bf16 pick runs unsplit) against the plain version, and two calls give
+    the same bits: the partials are summed in a fixed order."""
+    gen = torch.Generator(card).manual_seed(7)
+    x, w = _rand(gen, (M, K), dtype, card), _rand(gen, (K, N), dtype, card)
+    want = R.gemm_ref(x, w)
+    t = gemm_tiles(M, N, K, dtype.itemsize)
+    picked = gemm_splits(M, N, K, t, dtype.itemsize)
+    assert picked > 1 or (M, dtype) == (512, torch.bfloat16)
+    for splits in sorted({picked, 4}):
+        call = lambda: gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk,
+                                 splits=splits)
+        first, second = call(), call()
+        _gemm_close(first, want, dtype)
+        _gemm_rel(first, x, w)
+        assert torch.equal(first, second)
+    assert torch.equal(ops.gemm(x, w), ops.gemm(x, w))
+
+
+def test_gemm_wgmma_route_is_reported(card):
+    """gemm_cuda.wgmma_launches rises by one for an aligned bf16 call (the
+    library reports the wgmma kernel) and not for an unaligned one (K % 8)
+    nor for a misaligned operand nor for fp32."""
+    gen = torch.Generator(card).manual_seed(8)
+    x = _rand(gen, (100, 96), torch.bfloat16, card)
+    w = _rand(gen, (96, 120), torch.bfloat16, card)
+    cases = [(x, w, 1), (x[:, :77].contiguous(), w[:77].contiguous(), 0),
+             (_rand(gen, (100 * 96 + 1,), torch.bfloat16, card)[1:].view(
+                 100, 96), w, 0), (x.float(), w.float(), 0)]
+    for a, b, rise in cases:
+        before = (gemm_cuda.launches, gemm_cuda.wgmma_launches)
+        got = ops.gemm(a, b)
+        assert (gemm_cuda.launches, gemm_cuda.wgmma_launches) == \
+            (before[0] + 1, before[1] + rise)
+        _gemm_close(got, R.gemm_ref(a, b), a.dtype)
+
+
+def test_gemm_captured_in_a_cuda_graph_replays_to_the_eager_result(card):
+    """ops.gemm captured once in a CUDA graph (a split decode-shaped
+    product, whose workspace comes from the caching allocator, and an
+    unsplit one; the tensor maps are kernel parameters) and replayed over
+    new operands equals the eager calls."""
+    gen = torch.Generator(card).manual_seed(9)
+    shapes = ((1, 5120, 5120), (300, 1024, 512))
+    xs = [_rand(gen, (M, K), torch.bfloat16, card) for M, N, K in shapes]
+    ws = [_rand(gen, (K, N), torch.bfloat16, card) for M, N, K in shapes]
+    assert gemm_splits(1, 5120, 5120, gemm_tiles(1, 5120, 5120, 2), 2) > 1
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):   # warm-up: builds and loads the library
+        for x, w in zip(xs, ws):
+            ops.gemm(x, w)
+    torch.cuda.current_stream(card).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [ops.gemm(x, w) for x, w in zip(xs, ws)]
+    for seed in (10, 11):
+        g2 = torch.Generator(card).manual_seed(seed)
+        for x, w in zip(xs, ws):
+            x.copy_(_rand(g2, tuple(x.shape), torch.bfloat16, card))
+            w.copy_(_rand(g2, tuple(w.shape), torch.bfloat16, card))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, x, w in zip(outs, xs, ws):
+            torch.testing.assert_close(out, ops.gemm(x, w), rtol=0, atol=0)
+            _gemm_rel(out, x, w)
 
 
 def _rwkv_inputs(gen, B, H, T, D, dtype, dev):

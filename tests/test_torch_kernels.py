@@ -8,6 +8,8 @@ Tolerances are those of tests/test_kernels.py: fp32 1e-5 for the GEMM,
 2e-4 for attention (streaming vs direct softmax) and 1e-4 for the scans,
 bf16 2e-2 for the GEMM and 3e-2 for attention (bf16 operands and P)."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,32 +92,240 @@ def test_ops_gemm_ragged_vs_reference_ops():
                                t[1].numpy(), rtol=1e-4, atol=1e-4)
 
 
+def _gemm_candidates(M, N, K, dtype_bytes):
+    """The built tiles gemm_tiles may pick: no side wider than the problem
+    needs (the smallest built sides always qualify)."""
+    tiles = autotile.GEMM_TILES[dtype_bytes]
+    small = [min(t[i] for t in tiles) for i in range(3)]
+    return [t for t in tiles if t[0] <= max(small[0], M)
+            and t[1] <= max(small[1], N) and t[2] <= max(small[2], K)]
+
+
+def _units(M, N, tile, splits):
+    return -(-M // tile[0]) * -(-N // tile[1]) * splits
+
+
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
 @pytest.mark.parametrize("M,N,K", [(1, 1, 1), (1, 5120, 5120), (7, 45, 70),
                                    (33, 45, 70), (2048, 14336, 5120),
                                    (512, 512, 512), (8192, 8192, 8192)])
 def test_gemm_tiles_fit_and_are_built(dtype_bytes, M, N, K):
+    """The picked tile is built and its ring, at the depth autotile states,
+    fits the card's 227 KB; tile x split fills the 132 SMs wherever some
+    candidate tile's largest split can, and the split count never exceeds
+    the k-steps."""
     t = autotile.gemm_tiles(M, N, K, dtype_bytes)
-    assert (t.bm, t.bn, t.bk) in autotile.GEMM_TILES[dtype_bytes]
-    assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, dtype_bytes,
-                                    autotile.GEMM_STAGES) \
+    tile = (t.bm, t.bn, t.bk)
+    assert tile in autotile.GEMM_TILES[dtype_bytes]
+    stages = autotile.gemm_stages(*tile, dtype_bytes)
+    assert stages >= (3 if dtype_bytes == 2 else 2)
+    assert autotile.gemm_smem_bytes(*tile, dtype_bytes, stages) \
         <= autotile.SMEM_BYTES
-    if M <= 16:
-        assert t.bm == 16      # decode-shaped products take the 16-row tile
-    if min(M, N, K) >= 512:
-        assert (t.bm, t.bn) == (128, 128)   # square-ish, the largest built
+    if M <= 16:   # decode-shaped products take the fewest rows built
+        assert t.bm == min(b for b, _, _ in autotile.GEMM_TILES[dtype_bytes])
+    splits = autotile.gemm_splits(M, N, K, t, dtype_bytes)
+    assert 1 <= splits <= max(1, -(-K // t.bk))
+    can_fill = any(
+        _units(M, N, c, autotile.gemm_max_splits(M, N, K, c, dtype_bytes))
+        >= autotile.H100_SMS for c in _gemm_candidates(M, N, K, dtype_bytes))
+    if can_fill:
+        assert _units(M, N, tile, splits) >= autotile.H100_SMS
+
+
+@pytest.mark.parametrize("dtype_bytes", [2, 4])
+@pytest.mark.parametrize("M,N,K", [
+    (1, 5120, 5120), (7, 5120, 5120), (512, 512, 512), (1, 64, 64),
+    (64, 4096, 4096), (1000, 3000, 2000), (257, 250, 1001), (1, 14336, 96),
+    (2048, 14336, 5120), (3, 40, 100000)])
+def test_gemm_splits_fill_the_card_within_the_floor(dtype_bytes, M, N, K):
+    """For every built tile: one split when the output tiles fill the SMs;
+    else at least enough to fill them where the floor allows, and never
+    more than the floor (each split at least GEMM_SPLIT_MIN_STEPS k-steps,
+    none empty)."""
+    for tile in autotile.GEMM_TILES[dtype_bytes]:
+        s = autotile.gemm_splits(M, N, K, tile, dtype_bytes)
+        most = autotile.gemm_max_splits(M, N, K, tile, dtype_bytes)
+        steps = -(-K // tile[2])
+        assert 1 <= s <= most <= max(1, steps)
+        if s > 1:
+            assert steps // s >= autotile.GEMM_SPLIT_MIN_STEPS
+            # the kernel's ranges [z*steps/s, (z+1)*steps/s) cover the steps
+            starts = [z * steps // s for z in range(s + 1)]
+            assert starts[0] == 0 and starts[-1] == steps
+            assert all(b > a for a, b in zip(starts, starts[1:]))
+        tiles = _units(M, N, tile, 1)
+        if tiles >= autotile.H100_SMS:
+            assert s == 1
+        elif most * tiles >= autotile.H100_SMS:
+            assert s * tiles >= autotile.H100_SMS
+        else:
+            assert s == most
+
+
+def test_gemm_splits_at_the_decode_and_micro_bench_shapes():
+    """The shapes the split was made for: Mistral-NeMo's decode-shaped
+    (1 or 7) x 5120 . (5120 x 5120) in both dtypes and 512^3 in fp32 each
+    run at least 132 blocks; the up-projection at T = 2048 runs unsplit on
+    896 tiles of (128, 256)."""
+    for M in (1, 7):
+        for eb in (2, 4):
+            t = autotile.gemm_tiles(M, 5120, 5120, eb)
+            s = autotile.gemm_splits(M, 5120, 5120, t, eb)
+            assert s > 1 and _units(M, 5120, (t.bm, t.bn), s) >= 132
+    t = autotile.gemm_tiles(512, 512, 512, 4)
+    s = autotile.gemm_splits(512, 512, 512, t, 4)
+    assert s > 1 and _units(512, 512, (t.bm, t.bn), s) >= 132
+    t = autotile.gemm_tiles(2048, 14336, 5120, 2)
+    assert (t.bm, t.bn, t.bk) == (128, 256, 64)
+    assert autotile.gemm_splits(2048, 14336, 5120, t, 2) == 1
+    assert _units(2048, 14336, (128, 256), 1) == 896
+
+
+def test_gemm_tiles_and_splits_are_pure_functions_of_the_shapes():
+    shapes = [(1, 5120, 5120, 2), (512, 512, 512, 4), (33, 45, 70, 2),
+              (2048, 14336, 5120, 2), (7, 5120, 5120, 4)]
+    first = [(autotile.gemm_tiles(M, N, K, eb),
+              autotile.gemm_splits(M, N, K, autotile.gemm_tiles(M, N, K, eb),
+                                   eb)) for M, N, K, eb in shapes]
+    autotile.gemm_tiles.cache_clear()
+    autotile.gemm_splits.cache_clear()
+    again = [(autotile.gemm_tiles(M, N, K, eb),
+              autotile.gemm_splits(M, N, K, (t.bm, t.bn, t.bk), eb))
+             for (M, N, K, eb), (t, _) in zip(shapes, first)]
+    assert again == first
+
+
+def test_gemm_layout_matches_the_kernel():
+    """The bf16 block's shared memory as WgLayout lays it out (its
+    static_assert refuses a ring that exceeds the card's): STAGES x (the
+    128 x 64 X tile and the 64 x BN W tile), the 128 x 64 bf16 staging
+    tile of the epilogue, two barriers a stage and the 1024-byte
+    alignment; the ring is 5 deep at BN = 128 and 4 at 256.  The fp32
+    kernel keeps its padded two-stage cp.async ring."""
+    assert autotile.gemm_stages(128, 128, 64, 2) == 5
+    assert autotile.gemm_stages(128, 256, 64, 2) == 4
+    assert autotile.gemm_smem_bytes(128, 256, 64, 2) == \
+        4 * (2 * (128 * 64 + 64 * 256) + 16) + 2 * 128 * 64 + 1024 \
+        <= 232448
+    assert autotile.gemm_smem_bytes(128, 128, 16, 4) == \
+        2 * 4 * (128 * 20 + 16 * 132)
+    for tile in autotile.GEMM_TILES[2]:
+        assert tile[0] == 128 and tile[2] == 64 and tile[1] in (128, 256)
+
+
+def test_gemm_tiles_header_lists_the_built_tiles():
+    """csrc/gemm.cu instantiates what the generated header lists, and the
+    header lists exactly GEMM_TILES, the bf16 ones with their ring depth,
+    and the epilogue's columns a pass that gemm_smem_bytes counts: the
+    tiles and the layout are decided in one place."""
+    import re
+
+    from repro_torch.kernels import _build
+    text = _build.header("gemm")
+    lines = {ln.split("(X)")[0].split()[-1]: ln for ln in text.splitlines()
+             if ln.startswith("#define")}
+    f32 = [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", lines["LEGO_GEMM_F32_TILES"])]
+    assert f32 == list(autotile.GEMM_TILES[4])
+    bf16 = [tuple(map(int, t)) for t in re.findall(
+        r"X\((\d+), (\d+), (\d+), (\d+)\)", lines["LEGO_GEMM_BF16_TILES"])]
+    assert bf16 == [(*t, autotile.gemm_stages(*t, 2))
+                    for t in autotile.GEMM_TILES[2]]
+    assert f"#define LEGO_GEMM_EPI_COLS {autotile.GEMM_EPI_COLS}\n" in text
+    src = (_build.CSRC_DIR / "gemm.cu").read_text()
+    assert "LEGO_GEMM_F32_TILES(LEGO_F32)" in src
+    assert "LEGO_GEMM_BF16_TILES(LEGO_BF16)" in src
+    assert "constexpr int WG_EPI = LEGO_GEMM_EPI_COLS;" in src
+    assert '#include "hopper.cuh"' in src
+
+
+def test_package_data_ships_every_included_header():
+    """Every ``#include "..."`` of a csrc/*.cu source matches a glob of the
+    package data in pyproject.toml, so an installed (not editable) package
+    can build its kernels."""
+    import fnmatch
+    import re
+    import tomllib
+
+    from repro_torch.kernels import _build
+    pyproject = Path(__file__).resolve().parents[1] / "pyproject.toml"
+    globs = tomllib.loads(pyproject.read_text())["tool"]["setuptools"][
+        "package-data"]["repro_torch"]
+    shipped = {p.relative_to(_build.PKG_DIR).as_posix()
+               for p in _build.PKG_DIR.rglob("*")
+               if any(fnmatch.fnmatch(p.relative_to(_build.PKG_DIR)
+                                      .as_posix(), g) for g in globs)}
+    for name in _build.sources():
+        assert f"csrc/{name}.cu" in shipped
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        for inc in re.findall(r'^#include "([^"]+)"', src, re.M):
+            assert f"csrc/{inc}" in shipped, (name, inc, globs)
+
+
+def test_lib_path_follows_the_shared_header(tmp_path, monkeypatch):
+    """A library's hash covers csrc/*.cuh: an edit to hopper.cuh, which
+    gemm.cu includes, names another library (no stale load)."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "repro_torch" / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "repro_torch" /
+                        "build")
+    before = {n: _build.lib_path(n) for n in _build.sources()}
+    assert before == {n: _build.lib_path(n) for n in _build.sources()}
+    assert all(p.parent == tmp_path / "repro_torch" / "build"
+               for p in before.values())
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.sources()}
+    assert all(after[n] != before[n] for n in before)
+    (csrc / "hopper.cuh").write_bytes(
+        (_build.PKG_DIR / "csrc" / "hopper.cuh").read_bytes())
+    assert {n: _build.lib_path(n) for n in _build.sources()} == before
 
 
 def test_gemm_tiles_respect_budget_and_raise():
-    smallest = min(autotile.gemm_smem_bytes(*t, 2)
-                   for t in autotile.GEMM_TILES[2])
-    with pytest.raises(ValueError, match="no GEMM tile fits"):
-        autotile.gemm_tiles(8192, 8192, 8192, 2, smem_budget=smallest - 1)
-    t = autotile.gemm_tiles(8192, 8192, 8192, 2, smem_budget=24 * 1024)
-    assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, 2) <= 24 * 1024
+    for eb in (2, 4):
+        sizes = sorted(autotile.gemm_smem_bytes(*t, eb)
+                       for t in autotile.GEMM_TILES[eb])
+        with pytest.raises(ValueError, match="no GEMM tile fits"):
+            autotile.gemm_tiles(8192, 8192, 8192, eb,
+                                smem_budget=sizes[0] - 1)
+        t = autotile.gemm_tiles(8192, 8192, 8192, eb,
+                                smem_budget=sizes[-1] - 1)
+        assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, eb) < sizes[-1]
+    t = autotile.gemm_tiles(8192, 8192, 8192, 4, smem_budget=24 * 1024)
+    assert autotile.gemm_smem_bytes(t.bm, t.bn, t.bk, 4) <= 24 * 1024
     assert t.bm < 128
     with pytest.raises(ValueError, match="no GEMM tiles built"):
         autotile.gemm_tiles(64, 64, 64, 8)
+
+
+@pytest.mark.parametrize("M,N,K", [(2048 // 16, 14336 // 16, 5120), (1, 256, 5120),
+                                   (33, 45, 70)])
+def test_gemm_rel_err_admits_one_rounding_and_no_fault(M, N, K):
+    """ref.gemm_rel_err of the bf16 product rounded once from fp32 reads
+    under 2^-8 (half of the 2-ulp gate); a product missing one k16 slice,
+    or with one 64-deep k-step read twice (a stale ring stage), reads over
+    the 2-ulp gate at K = 5120."""
+    rs = np.random.RandomState(M + N)
+    x = torch.from_numpy(rs.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rs.standard_normal((K, N)).astype(np.float32))
+    xb, wb = x.bfloat16(), w.bfloat16()
+    assert TR.gemm_rel_err(TR.gemm_ref(xb, wb), xb, wb) <= 2.0 ** -8
+    if K < 5120:
+        return
+    gate = 2 * 2.0 ** -7
+    drop = wb.clone()
+    drop[1024:1040] = 0
+    assert TR.gemm_rel_err(TR.gemm_ref(xb, drop), xb, wb) > gate
+    stale = wb.clone()
+    stale[2048:2112] = wb[1984:2048]
+    xs = xb.clone()
+    xs[:, 2048:2112] = xb[:, 1984:2048]
+    assert TR.gemm_rel_err(TR.gemm_ref(xs, stale), xb, wb) > gate
 
 
 def test_gemm_cuda_rejects_cpu_and_meta_tensors():
@@ -441,7 +651,7 @@ def test_attention_tiles_header_lists_the_built_tiles():
     src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
     assert "LEGO_F32_TILES(LEGO_F32)" in src
     assert "LEGO_BF16_TILES(LEGO_BF16)" in src
-    assert _build.header("gemm") == ""
+    assert _build.header("gemm") == autotile.gemm_tiles_header()
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
