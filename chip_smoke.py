@@ -25,8 +25,12 @@ Phases, each of which stops the run with a non-zero exit on failure:
    chunk edges, S/2 and S - 1, windows and softcap, and Gemma-2's 4096
    window over 8192 positions, bf16 also against the fp32 plain version;
    the RWKV-6 recurrence
-   over dtype / head size / (B, H) / ragged T; the Mamba selective scan over
-   dtype / state size / (Bt, L, Dm);
+   over dtype / head size / (B, H) / ragged T, and over the whole range of
+   decays (w = 0, w = 1e-30, w = 1, strong and mild mixed in one chunk),
+   every bf16 call checked to have taken the tensor-core kernel and held
+   also to one bf16 ulp of the fp32 plain version (``ref.rwkv6_rel_err``)
+   and to the chunked plain version (``ref.rwkv6_chunked_ref``); the Mamba
+   selective scan over dtype / state size / (Bt, L, Dm);
 4. the main paths, in bf16 with random weights from a seeded generator, the
    kernels' launch counters reset before and read after each run (and
    every K2 prefill launch checked to have been reported by the library as
@@ -37,7 +41,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
       decode call split), on the host clock and, for one step, its
       device-busy time and K2 decode's part of it from ``torch.profiler``;
    b. RWKV-6 7B at full width and depth — the same two runs (``forward``
-      through the wkv kernel once per layer, ``generate`` through the plain
+      through the wkv kernel once per layer, every call on its tensor-core
+      kernel as the library reports it, ``generate`` through the plain
       recurrence step, as in the reference);
    c. Jamba-1.5-Large at full width, the first 7 layers of its 8-layer
       period (a whole period does not fit the card) — the same two runs
@@ -71,7 +76,10 @@ Phases, each of which stops the run with a non-zero exit on failure:
    tile's time at each and the output also held to the fp32 plain version;
    K2 decode at Mistral-NeMo's, Phi-3-vision's, Jamba's, Gemma-2's
    (window 4096 over 8192) and phase 4's (40 positions) shapes, the kernel
-   and SDPA timed as CUDA graphs (the eager calls are paced by the host).
+   and SDPA timed as CUDA graphs (the eager calls are paced by the host);
+   K4 as a CUDA graph too (eager logged), its bound the larger of its
+   bytes and of its own products at the bf16 rate plus its element-wise
+   work at the fp32 rate.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -107,6 +115,14 @@ BF16_ULP = 2.0 ** -7        # one bf16 ulp, relative
 # this file's cases, a kv tile skipped in long rows or late rows 10% off
 # read 0.08 and more; the 3e-2 gate alone does not see the latter
 BF16_REL_TOL = 3 * BF16_ULP
+# bf16 K4 against the plain version in fp32 from the same inputs, relative
+# to |want| plus the rms of want's row (ref.rwkv6_rel_err): the kernel
+# rounds o once (at most half an ulp) and runs every product as split bf16
+# products (~2^-16 of each term), so one ulp is twice what the design can
+# read; a dropped u term, a decay one step late or a chunk's state lost read
+# tens to hundreds of ulps
+RWKV_REL_TOL = BF16_ULP
+RWKV_DECAYS = ("sigmoid", "zero", "tiny", "one", "mixed")
 # bf16 K1 against the product in fp32 from the same inputs, relative to
 # |want| plus the rms of want's row (ref.gemm_rel_err): one rounding reads
 # at most 2^-8; a k16 slice dropped or a stale ring stage at K = 5120 reads
@@ -269,6 +285,72 @@ def on_tensor_cores(n: int) -> str:
     return f"K2 prefill on the tensor-core kernel: {tc} of {n}"
 
 
+def check_rwkv(name, o, s_last, args, quiet=False) -> float:
+    """A K4 output against the plain version on the same inputs: o at the
+    dtype's tolerance (1e-4 fp32, 3e-2 bf16), S_last at the scans' 1e-4
+    (fp32 from the same inputs on both sides); bf16 also within
+    ``RWKV_REL_TOL`` of the plain version in fp32 (``ref.rwkv6_rel_err``)
+    and against the chunked plain version, the kernel's own algorithm, at
+    the same tolerances.  Returns the max abs error of o."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    bf16 = o.dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else SCAN_TOL
+    o_ref, s_ref = R.rwkv6_ref(*args)
+    err = check_close(f"{name} o", o, o_ref, tol, quiet=quiet)
+    check_close(f"{name} S_last", s_last, s_ref, SCAN_TOL, quiet=quiet)
+    if bf16:
+        rel = R.rwkv6_rel_err(o, *args)
+        o_c, s_c = R.rwkv6_chunked_ref(*args)
+        check_close(f"{name} o vs chunked plain", o, o_c, tol, quiet=True)
+        check_close(f"{name} S_last vs chunked plain", s_last, s_c, SCAN_TOL,
+                    quiet=True)
+        if not quiet or rel > RWKV_REL_TOL:
+            log(f"  {name}: rel_err={rel:.3e} (tol {RWKV_REL_TOL:g} of "
+                "|want| + row rms, fp32 plain)")
+        if rel > RWKV_REL_TOL:
+            fail(f"{name}: outside {RWKV_REL_TOL:g} of the fp32 plain version")
+    return err
+
+
+def on_rwkv_tensor_cores(n: int) -> str:
+    """Fails unless all ``n`` K4 launches since the counters were reset went,
+    as the library reports, to the tensor-core kernel (the bf16 route);
+    returns the log's note."""
+    from repro_torch.kernels.rwkv6 import rwkv6_cuda
+    tc = rwkv6_cuda.tensor_core_launches
+    if tc != n:
+        fail(f"{tc} of {n} bf16 K4 launches took the tensor-core kernel")
+    return f"K4 on the tensor-core kernel: {tc} of {n}"
+
+
+def rwkv6_tc_work(B: int, H: int, T: int, D: int) -> tuple[float, float]:
+    """(tensor-core flops, CUDA-core flops) that the bf16 K4 kernel runs at
+    these shapes, counted from its design: per chunk of 64 steps the six
+    16 x 16 score tiles between sub-chunks and the four inner 16 x 8 tiles
+    (R K^T over D, three split products each), A V over the ten lower
+    16 x 16 blocks (two), R S and K^T V over 64 x D x D (three and two);
+    a chunk before a block's run only K^T V.  On the CUDA cores the
+    diagonal 8 x 8 blocks (an FMA and a multiply per entry and channel),
+    the decayed operands (a product and the hi/lo rest per element) and
+    the state's decay."""
+    from repro_torch.kernels import autotile
+    tiles = autotile.rwkv6_tiles(B, H, T, D, D)
+    starts = autotile.rwkv6_segment_starts(T, tiles.segments)
+    full = starts[-1]
+    carried = sum(starts[:-1])
+    mac_full = (6 * 16 * 16 * D * 3 + 4 * 16 * 8 * D * 3
+                + 10 * 16 * 16 * D * 2 + 64 * D * D * 3 + D * 64 * D * 2)
+    mac_carried = D * 64 * D * 2
+    tc = 2 * B * H * (full * mac_full + carried * mac_carried)
+    # 8 blocks x 36 entries x D channels x (FMA + multiply); 19 operand
+    # tiles of 16 x D x (product + rest); the state's decay and rescale
+    cc_full = 8 * 36 * D * 3 + 19 * 16 * D * 2 + 5 * D * D * 2
+    cc = B * H * (full * cc_full + carried * (4 * 16 * D * 2 + 5 * D * D * 2))
+    return float(tc), float(cc)
+
+
 def bound(flops: float, nbytes: float,
           dtype_bytes: int) -> tuple[float, str]:
     """The least time (ms) for ``flops`` at the H100's peak rate for the
@@ -340,11 +422,31 @@ def main() -> int:
     def rand(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def rwkv_inputs(B, H, T, D, dtype):
-        """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1)."""
+    def rwkv_inputs(B, H, T, D, dtype, decay="sigmoid"):
+        """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1);
+        other ``decay``s cover the range a trained RWKV-6 has (w =
+        exp(-exp(w_raw)), models/blocks.py), as tests/test_torch_kernels.py
+        draws them: ``zero`` w = 0 exactly on a third of the steps,
+        ``tiny`` w = 1e-30 on every other step, ``one`` w = 1 exactly on
+        the even channels and every fourth step, ``mixed`` strong (1e-6 to
+        1e-3) and mild (0.95 to 0.999) decays mixed in one chunk."""
         r, v = rand(B, H, T, D, dtype=dtype), rand(B, H, T, D, dtype=dtype)
         k = (0.3 * rand(B, H, T, D, dtype=torch.float32)).to(dtype)
         w = torch.sigmoid(rand(B, H, T, D, dtype=torch.float32) + 2.0)
+        if decay == "zero":
+            w[..., ::3, :] = 0.0
+        elif decay == "tiny":
+            w[..., 1::2, :] = 1e-30
+        elif decay == "one":
+            w[..., ::2] = 1.0
+            w[..., ::4, :] = 1.0
+        elif decay == "mixed":
+            unit = torch.rand(w.shape, generator=gen, device=dev)
+            strong = 10.0 ** (-6.0 + 3.0 * unit)
+            mild = 0.95 + 0.049 * torch.rand(w.shape, generator=gen,
+                                              device=dev)
+            w = torch.where(torch.rand(w.shape, generator=gen, device=dev)
+                            < 0.3, strong, mild)
         u = (0.1 * rand(H, D, dtype=torch.float32)).to(dtype)
         return r, k, v, w.to(dtype), u
 
@@ -509,18 +611,28 @@ def main() -> int:
                 + (f", rel_err at most {max(rel):.3e} (tol "
                    f"{BF16_REL_TOL:g})" if rel else ""))
     # the RWKV-6 recurrence: o at the dtype's tolerance; S_last is fp32 from
-    # the same rounded inputs on both sides, so it is held at the scan's
-    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, BF16_TOL)):
+    # the same rounded inputs on both sides, so it is held at the scan's;
+    # bf16 (the tensor-core kernel, every call checked) also within one ulp
+    # of the fp32 plain version and against the chunked plain version; then
+    # decays across the whole range, at a ragged T over three chunks and
+    # over 32 chunks
+    for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
-        for Dk, _ in RWKV_HEAD_DIMS:
-            for B, H in ((1, 64), (2, 4)):
-                for T in (1, 16, 77, 2048):
-                    args = rwkv_inputs(B, H, T, Dk, dtype)
-                    o, s_last = rwkv6_cuda(*args)
-                    o_ref, s_ref = R.rwkv6_ref(*args)
-                    name = f"rwkv6 {tag} D={Dk} B={B} H={H} T={T}"
-                    check_close(f"{name} o", o, o_ref, tol)
-                    check_close(f"{name} S_last", s_last, s_ref, SCAN_TOL)
+        cases = [(Dk, B, H, T, "sigmoid") for Dk, _ in RWKV_HEAD_DIMS
+                 for B, H in ((1, 64), (2, 4)) for T in (1, 16, 77, 2048)]
+        cases += [(Dk, B, H, T, decay) for decay in RWKV_DECAYS[1:]
+                  for Dk, _ in RWKV_HEAD_DIMS
+                  for B, H, T in ((2, 4, 131), (1, 8, 2048))]
+        for Dk, B, H, T, decay in cases:
+            args = rwkv_inputs(B, H, T, Dk, dtype, decay)
+            tc = rwkv6_cuda.tensor_core_launches
+            o, s_last = rwkv6_cuda(*args)
+            name = f"rwkv6 {tag} D={Dk} B={B} H={H} T={T} decay={decay}"
+            if rwkv6_cuda.tensor_core_launches - tc != int(
+                    dtype == torch.bfloat16):
+                fail(f"{name}: the library reported another route than "
+                     "the dtype's kernel")
+            check_rwkv(name, o, s_last, args)
     # the Mamba selective scan: y and h_last are fp32 sums of the same
     # inputs on both sides (1e-4); a bf16 y is rounded once from them, so
     # the two may differ by one bf16 ulp
@@ -548,6 +660,7 @@ def main() -> int:
         flash_attention_cuda.tensor_core_launches = 0
         decode_attention_cuda.split_launches = 0
         gemm_cuda.wgmma_launches = 0
+        rwkv6_cuda.tensor_core_launches = 0
 
     def launches():
         """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
@@ -909,27 +1022,48 @@ def main() -> int:
         if tag == "Mistral-NeMo":
             kernels.append(row)
         del q, k, v, kept_k, kept_v
-    # K4 at rwkv6_7b's forward shape: B=1, H=64, T=2048, Dk=Dv=64, bf16
+    # K4 at rwkv6_7b's forward shape: B=1, H=64, T=2048, Dk=Dv=64, bf16,
+    # the kernel timed as a CUDA graph (an eager call allocates o and S_last
+    # and is paced by the host at these times; logged too)
     Bw, Hw, Tw = 1, rcfg.d_model // rcfg.rwkv_head_dim, 2048
     Dw = rcfg.rwkv_head_dim
     args = rwkv_inputs(Bw, Hw, Tw, Dw, bf)
     kern = lambda: rwkv6_cuda(*args)
     plain = lambda: R.rwkv6_ref(*args)
-    (o, s_last), (o_ref, s_ref) = kern(), plain()
-    err = check_close("rwkv6 at the main path's shape o", o, o_ref, BF16_TOL)
-    check_close("rwkv6 at the main path's shape S_last", s_last, s_ref,
-                SCAN_TOL)
-    # the r.S product and the S update, 2 flops per state element each, in
-    # fp32 (the state is fp32); r, k, v, w, u read and o written in bf16,
-    # S_last written in fp32
-    flops = 4 * Bw * Hw * Tw * Dw * Dw
+    o, s_last = kern()
+    err = check_rwkv("rwkv6 at the main path's shape", o, s_last, args)
+    # bytes: r, k, v, w, u read and o written in bf16, S_last written in
+    # fp32; operations: the design's own products at the bf16 rate plus its
+    # element-wise work at the fp32 rate (rwkv6_tc_work)
+    from repro_torch.kernels.autotile import PEAK_BYTES, PEAK_FLOPS
     nbytes = 2 * (5 * Bw * Hw * Tw * Dw + Hw * Dw) + 4 * Bw * Hw * Dw * Dw
-    b_ms, b_by = bound(flops, nbytes, 4)
-    kernels.append(_row("rwkv6_wkv", rwkv_fwd_launches[2], err, kern, plain,
-                        None, b_ms, b_by,
-                        f"B={Bw} H={Hw} T={Tw} Dk=Dv={Dw} bf16", **RWKV,
-                        no_library="no single PyTorch call computes the wkv "
-                        "recurrence"))
+    tc_flops, cc_flops = rwkv6_tc_work(Bw, Hw, Tw, Dw)
+    ops_ms = (tc_flops / PEAK_FLOPS[2] + cc_flops / PEAK_FLOPS[4]) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    b_ms, b_by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                         else "operations")
+    log(f"  rwkv6 bound: bytes {nbytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms; "
+        f"operations {tc_flops / 1e9:.2f} GFLOP on the tensor cores + "
+        f"{cc_flops / 1e9:.3f} GFLOP on the CUDA cores -> {ops_ms:.4f} ms; "
+        f"the recurrence in fp32 (4 Dk Dv flops a step) would be "
+        f"{bound(4 * Bw * Hw * Tw * Dw * Dw, 0, 4)[0]:.4f} ms")
+    row = _row("rwkv6_wkv", rwkv_fwd_launches[2], err, kern, plain, None,
+               b_ms, b_by, f"B={Bw} H={Hw} T={Tw} Dk=Dv={Dw} bf16; ms as a "
+               "CUDA graph", graph=True, **RWKV,
+               no_library="no single PyTorch call computes the wkv "
+               "recurrence")
+    log(f"    eager (host-paced) calls: kernel {time_ms(kern):.4f} ms; "
+        f"{nbytes / row['ms'] / 1e6:.0f} GB/s, "
+        f"{b_ms / row['ms'] * 100:.1f}% of the bound")
+    kernels.append(row)
+    del args, o, s_last
+    # the fp32 route (the recurrence on the CUDA cores) at the same shape,
+    # logged: bound 4 Dk Dv flops a step at the fp32 rate
+    args = rwkv_inputs(Bw, Hw, Tw, Dw, torch.float32)
+    log(f"  rwkv6 fp32 (CUDA cores) [B={Bw} H={Hw} T={Tw} Dk=Dv={Dw}]: "
+        f"{time_ms(lambda: rwkv6_cuda(*args)):.4f} ms, bound "
+        f"{bound(4 * Bw * Hw * Tw * Dw * Dw, 0, 4)[0]:.4f} ms (operations)")
+    del args
     # K3 at jamba's forward shape: Bt=1, L=2048, Dm=d_inner, N=d_state, bf16
     Bs, Ls, Ds, Ns = 1, 2048, jcfg.d_inner, jcfg.d_state
     args = ssm_inputs(Bs, Ls, Ds, Ns, bf)
@@ -1030,7 +1164,9 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
         log(f"  forward B=1 T={T} (prefix {prefix}): {fwd_ms:.1f} ms "
             f"({T / fwd_ms * 1e3:.0f} "
             f"prompt tok/s), logits finite, launches {fwd_launches} "
-            f"({on_tensor_cores(fwd_launches[0])}); weight "
+            f"({on_tensor_cores(fwd_launches[0])}"
+            + (f"; {on_rwkv_tensor_cores(fwd_launches[2])}"
+               if fwd_launches[2] else "") + "); weight "
             f"products {mm_flops / 1e12:.2f} TFLOP, bound "
             f"{bound(mm_flops, 0, 2)[0]:.2f} ms at the bf16 peak")
 

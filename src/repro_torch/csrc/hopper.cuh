@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // shared-memory barriers (mbarrier), TMA tile loads and stores, named
-// barriers, wgmma descriptors and products, register rebalancing, and
-// tensor-map encoding through the runtime's driver entry-point query
-// (nothing links against libcuda).
+// barriers, mma.sync products and their ldmatrix loads, wgmma descriptors
+// and products, register rebalancing, and tensor-map encoding through the
+// runtime's driver entry-point query (nothing links against libcuda).
 //
-// Included by gemm.cu.  flash_attention.cu keeps its own copies of the same
+// Included by gemm.cu and rwkv6.cu.  flash_attention.cu keeps its own copies of the same
 // primitives for now; the build hashes every csrc/*.cuh with each source, so
 // an edit here rebuilds every library.
 
@@ -114,6 +114,31 @@ __device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a,
                                              uint32_t d) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (bf16 in, fp32 accumulators) and its ldmatrix loads
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------

@@ -6,8 +6,8 @@ use into ``build/lib<name>-<hash>.so`` inside the package (a directory that
 ``csrc/*.cuh`` (which any source may include), the flags and the header
 generated for it, so an edit never loads a stale library.  A source whose
 instantiations Python decides (``flash_attention``: the attention tiles,
-``gemm``: the GEMM tiles and ring depths of
-:mod:`repro_torch.kernels.autotile`) gets that header written beside its
+``gemm``: the GEMM tiles and ring depths, ``rwkv6``: the chunk, the
+sub-chunk and the built head sizes of :mod:`repro_torch.kernels.autotile`) gets that header written beside its
 library and included before it (``-include``).  No PyTorch header is
 compiled, which keeps a build to seconds.  Nothing here runs at import time.
 """
@@ -57,6 +57,9 @@ def header(name: str) -> str:
     if name == "gemm":
         from .autotile import gemm_tiles_header
         return gemm_tiles_header()
+    if name == "rwkv6":
+        from .autotile import rwkv6_tiles_header
+        return rwkv6_tiles_header()
     return ""
 
 

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import functools
 import math
+
+import numpy as np
 from typing import NamedTuple
 
 SMEM_BYTES = 227 * 1024   # dynamic shared memory one block may use (sm_90)
@@ -62,6 +64,19 @@ DECODE_ROWS = (1, 2, 4, 8)
 DECODE_WAVES = 2
 DECODE_MIN_BYTES = 64 * 1024
 DECODE_MAX_SPLITS = 1024   # MAX_SPLITS of csrc/flash_attention.cu
+
+# K4 (RWKV-6 wkv) in bf16 on the tensor cores: the sequence is cut into
+# chunks of RWKV_CHUNK steps and each chunk into sub-chunks of RWKV_SUB (one
+# mma.sync row tile, one warp's rows); a block marches over the chunks of one
+# segment of T of one (batch, head) (rwkv6_tiles).  fp32 K4 stays on the
+# CUDA cores and takes no tile
+RWKV_HEAD_DIMS = ((16, 16), (64, 64))   # built (Dk, Dv), both dtypes
+RWKV_CHUNK = 64
+RWKV_SUB = 16
+# a chunk whose state is only carried (before a block's own run) costs about
+# this share of one whose outputs are computed (clock64 per phase of the
+# last block at B*H = 64, T = 2048: ~4.5K of ~12.0K cycles, H100)
+RWKV_PRE_COST = 3 / 8
 
 # (bq, bk) candidates of csrc/flash_attention.cu, by element size in
 # bytes: fp32 prefill on the CUDA cores (4·bq threads, bk/16 score columns
@@ -369,3 +384,76 @@ def attention_tiles_header() -> str:
     return ("// written by repro_torch.kernels.autotile; do not edit\n"
             f"#define LEGO_F32_TILES(X) {tiles(4)}\n"
             f"#define LEGO_BF16_TILES(X) {tiles(2)}\n")
+
+
+class RwkvTiles(NamedTuple):
+    chunk: int
+    sub: int
+    segments: int
+
+
+@functools.cache
+def rwkv6_tiles(B: int, H: int, T: int, Dk: int, Dv: int) -> RwkvTiles:
+    """Chunk, sub-chunk and segments of T per (batch, head) of bf16 K4, from
+    the shapes alone.  The chunk and sub-chunk are fixed (any T is taken,
+    the last chunk ragged).  T's chunks are cut into ``segments`` runs, one
+    block each (rwkv6_segment_starts): a block first carries the state over
+    the chunks before its run (the state's update alone, about
+    RWKV_PRE_COST of a chunk's work) and then computes its run's outputs.
+    The segments are the most, a power of two, that keep B x H x segments
+    blocks within one block per SM (a block holds most of an SM's shared
+    memory) and leave no run empty.  Raises on a head size that is not
+    built."""
+    if (Dk, Dv) not in RWKV_HEAD_DIMS or min(B, H, T) < 1:
+        raise ValueError(f"no bf16 rwkv6 kernel for B={B} H={H} T={T} "
+                         f"Dk={Dk} Dv={Dv} (built: {RWKV_HEAD_DIMS})")
+    segments = 1
+    while B * H * 2 * segments <= H100_SMS:
+        starts = rwkv6_segment_starts(T, 2 * segments)
+        if min(b - a for a, b in zip(starts, starts[1:])) < 1:
+            break
+        segments *= 2
+    return RwkvTiles(RWKV_CHUNK, RWKV_SUB, segments)
+
+
+def rwkv6_segment_starts(T: int, segments: int) -> list:
+    """The first chunk of each of the ``segments`` runs of T's chunks, and
+    the chunk count last, as ``csrc/rwkv6.cu`` cuts them: block p carries
+    the state over starts[p] chunks and computes starts[p + 1] - starts[p],
+    which makes starts[p + 1] - (1 - RWKV_PRE_COST) starts[p] the same for
+    every p, so the runs shrink geometrically (in fp32, as the kernel
+    computes them)."""
+    n = -(-T // RWKV_CHUNK)
+    q = np.float32(1 - RWKV_PRE_COST)
+    den = np.float32(1) - q ** np.float32(segments)
+    return [0] + [int(np.rint(np.float32(n) * (np.float32(1) - q ** np.float32(p))
+                              / den)) for p in range(1, segments)] + [n]
+
+
+def rwkv6_smem_bytes(Dk: int, Dv: int) -> int:
+    """Shared memory of one tensor-core K4 block, counted as ``TcLayout`` in
+    ``csrc/rwkv6.cu`` lays it out: three stages of bf16 r, k, w (C x Dk) and v
+    (C x Dv, rows padded by 8); in hi and lo bf16 halves (rows padded by 8)
+    R (C x Dk), R from the chunk start, K (C x Dk), the three rescaled K
+    sub-chunks of the pairs two and three apart (16 x Dk each), R and K of
+    the sub-chunks' inner halves (4 x 8 x Dk each), the scores A (C x C)
+    and the state (Dk x Dv); 8 zeros; in fp32 12 decay factors per
+    channel for this chunk and the next."""
+    C, sub = RWKV_CHUNK, RWKV_SUB
+    sk, sv, sa = Dk + 8, Dv + 8, C + 8
+    stage = 3 * C * Dk + C * sv
+    halves = 3 * C * sk + 3 * sub * sk + 2 * (C // sub) * 8 * sk + C * sa \
+        + Dk * sv
+    return 2 * (3 * stage + 2 * halves + 8) + 4 * 2 * 12 * Dk
+
+
+def rwkv6_tiles_header() -> str:
+    """The header ``nvcc`` includes before ``csrc/rwkv6.cu``: the chunk and
+    sub-chunk, and an X-macro list X(Dk, Dv) of the tensor-core kernels to
+    build."""
+    tc = " ".join(f"X({dk}, {dv})" for dk, dv in RWKV_HEAD_DIMS)
+    return ("// written by repro_torch.kernels.autotile; do not edit\n"
+            f"#define LEGO_RWKV_CHUNK {RWKV_CHUNK}\n"
+            f"#define LEGO_RWKV_SUB {RWKV_SUB}\n"
+            f"#define LEGO_RWKV_PRE_COST {RWKV_PRE_COST!r}f\n"
+            f"#define LEGO_RWKV_TC_TILES(X) {tc}\n")

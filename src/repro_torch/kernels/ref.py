@@ -11,6 +11,7 @@ semantics, fp32 accumulation):
                          edges and merged as its combine pass merges
   selective_scan_ref   : the Mamba S6 scan, a loop over L
   rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
+  rwkv6_chunked_ref    : the same in the bf16 kernel's chunked matrix form
 
 These are what the CPU runs and what the CUDA kernels are held against.
 """
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .autotile import decode_splits
+from .autotile import RWKV_CHUNK, RWKV_SUB, decode_splits
 
 NEG_INF = -1e30
 
@@ -239,6 +240,126 @@ def rwkv6_ref(r, k, v, w, u, s0=None):
     o = (torch.stack(outs, dim=2) if outs else
          torch.zeros((B, H, 0, Dv), dtype=torch.float32, device=r.device))
     return o.to(r.dtype), S
+
+
+def rwkv6_rel_err(got, r, k, v, w, u) -> float:
+    """How far a bf16 wkv output ``got`` is from :func:`rwkv6_ref` run in
+    fp32 on the same inputs: the largest |got - want| / (|want| + rms of
+    want's row).  The bf16 kernel rounds o once (at most 2^-8 of |want|)
+    and runs every product as split bf16 products (about 2^-16 of each
+    term); the u term dropped, the decay taken one step late or a chunk's
+    state lost move rows by hundredths of their rms, which the 3e-2 gate
+    can miss where |want| is large."""
+    want, _ = rwkv6_ref(*(t.float() for t in (r, k, v, w, u)))
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    den = (want.abs() + rms).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got.float() - want).abs() / den).max().item()
+
+
+def rwkv6_chunked_ref(r, k, v, w, u):
+    """:func:`rwkv6_ref` computed as the bf16 tensor-core kernel computes
+    it (``csrc/rwkv6.cu``), so that its algebra can be held against the
+    reference where the kernel cannot run.  Unlike the per-step chunked
+    copy that the port once had (bit for bit the loop), this is another
+    algorithm: T is cut into chunks of ``RWKV_CHUNK`` steps and each into
+    sub-chunks of ``RWKV_SUB``; inside a chunk
+
+        o_t = (r_t ⊙ Π_{τ<t} w_τ) · S_0 + Σ_{s<t} A_ts v_s + (r_t ⊙ u · k_t) v_t
+        S_C = diag(Π_τ w_τ) · S_0 + Σ_s (k_s ⊙ Π_{τ>s} w_τ) v_sᵀ
+
+    with A_ts = Σ_i r_ti k_si Π_{s<τ<t} w_τi.  Every decay is a product of
+    w over an explicit range, never a ratio of products and never a
+    logarithm, so each factor is at most 1, w = 0 gives exact zeros and
+    nothing can overflow.  Between sub-chunks J < I, A is one product
+    (r_t ⊙ Π_{I_0 ≤ τ < t} w)·(k_s ⊙ Π_{s < τ < I_0} w)ᵀ factored at the
+    start I_0 of the row's sub-chunk; inside a sub-chunk A is summed
+    element by element in fp32.  Steps past T decay by 1 and add nothing.
+
+    The state's update takes each sub-chunk's (k_s ⊙ Π_{s<τ≤J_end} w)ᵀ v
+    and rescales it in fp32 by the decay of the later sub-chunks.  The
+    rounding points are the kernel's, in the inputs' dtype: each product's
+    operands are split into a rounded high part and the rounded rest, and
+    the product is hi·hi + hi·lo + lo·hi (v is exact, so A·V and the
+    state's update take hi·v + lo·v); o is rounded once.  In fp32 the
+    low parts are zero and the products exact fp32.  Callers on a card
+    turn TF32 off.  Returns (o (B, H, T, Dv) in r.dtype, S_last
+    (B, H, Dk, Dv) fp32)."""
+    B, H, T, Dk = r.shape
+    Dv = v.shape[-1]
+    C, SUB = RWKV_CHUNK, RWKV_SUB
+    NS, n = C // SUB, -(-T // C)
+    dt = r.dtype
+
+    def padded(x, fill):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, n * C - T),
+                                       value=fill)
+
+    rs, ks, ws = (padded(x, f).reshape(B, H, n, NS, SUB, Dk)
+                  for x, f in ((r, 0.0), (k, 0.0), (w, 1.0)))
+    vc = padded(v, 0.0).reshape(B, H, n, C, Dv)
+    uf = u.float()[None, :, None, :]
+
+    def split(x):
+        hi = x.to(dt).float()
+        return hi, (x - hi).to(dt).float()
+
+    def mm3(a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        return ah @ bh + ah @ bl + al @ bh
+
+    def mm2(a, b):          # b exact in dt (v)
+        ah, al = split(a)
+        return ah @ b + al @ b
+
+    ones = torch.ones_like(ws[..., :1, :])
+    cp = torch.cumprod(ws, -2)
+    pex = torch.cat([ones, cp[..., :-1, :]], -2)      # Π_{J_0 ≤ τ < t} w
+    sex = torch.cat([torch.cumprod(ws.flip(-2), -2).flip(-2)[..., 1:, :],
+                     ones], -2)                       # Π_{s < τ ≤ J_end} w
+    Wsub = cp[..., -1, :]                             # (B, H, n, NS, Dk)
+
+    def wprod(a, b):                                  # Π_{a ≤ J < b} Wsub_J
+        out = torch.ones_like(Wsub[..., 0, :])
+        for J in range(a, b):
+            out = out * Wsub[..., J, :]
+        return out
+
+    A = torch.zeros((B, H, n, C, C), dtype=torch.float32, device=r.device)
+    ksex = ks * sex
+    for I in range(1, NS):
+        rows = slice(I * SUB, (I + 1) * SUB)
+        KI = torch.cat([ksex[..., J, :, :] * wprod(J + 1, I)[..., None, :]
+                        for J in range(I)], -2)
+        A[..., rows, :I * SUB] = mm3(rs[..., I, :, :] * pex[..., I, :, :],
+                                     KI.transpose(-1, -2))
+    for I in range(NS):                               # diagonal sub-blocks
+        for s in range(SUB):
+            kd = ks[..., I, s, :]
+            A[..., I * SUB + s, I * SUB + s] = \
+                (rs[..., I, s, :] * uf * kd).sum(-1)
+            for t in range(s + 1, SUB):
+                if t > s + 1:
+                    kd = kd * ws[..., I, t - 1, :]
+                A[..., I * SUB + t, I * SUB + s] = (rs[..., I, t, :]
+                                                    * kd).sum(-1)
+    o_intra = mm2(A, vc)
+    Rs = torch.stack([rs[..., J, :, :] * (pex[..., J, :, :]
+                                          * wprod(0, J)[..., None, :])
+                      for J in range(NS)], 3).reshape(B, H, n, C, Dk)
+    after = [wprod(J + 1, NS)[..., None] for J in range(NS)]
+    Wtot = wprod(0, NS)
+    S = torch.zeros((B, H, Dk, Dv), dtype=torch.float32, device=r.device)
+    outs = []
+    for c in range(n):
+        outs.append(o_intra[:, :, c] + mm3(Rs[:, :, c], S))
+        S = Wtot[:, :, c, :, None] * S
+        for J in range(NS):
+            S = S + after[J][:, :, c] * mm2(
+                ksex[:, :, c, J].transpose(-1, -2),
+                vc[:, :, c, J * SUB:(J + 1) * SUB])
+    o = torch.cat(outs, 2)[:, :, :T] if outs else vc[:, :, :0].reshape(
+        B, H, 0, Dv)
+    return o.to(dt), S
 
 
 def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):

@@ -12,7 +12,8 @@ bf16 2e-2 (the GEMM) and 3e-2; the Mamba scan's bf16 y is rounded once
 from fp32 on both sides, so it is held to one bf16 ulp (2^-7 relative).
 The bf16 attention prefill and decode are also held to three bf16 ulps of
 the plain version computed in fp32, relative to |want| plus its row's
-rms."""
+rms; the bf16 RWKV-6 recurrence to one such ulp and to its chunked plain
+version."""
 
 import dataclasses
 
@@ -42,6 +43,8 @@ TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # same inputs, relative to |want| plus the row's rms
 # (ref.attention_rel_err), as chip_smoke.py holds them: three bf16 ulps
 BF16_REL_TOL = 3 * 2.0 ** -7
+# bf16 K4 likewise (ref.rwkv6_rel_err): one bf16 ulp
+RWKV_REL_TOL = 2.0 ** -7
 
 
 @pytest.fixture
@@ -478,15 +481,47 @@ def test_gemm_captured_in_a_cuda_graph_replays_to_the_eager_result(card):
             _gemm_rel(out, x, w)
 
 
-def _rwkv_inputs(gen, B, H, T, D, dtype, dev):
-    """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1)."""
+def _rwkv_inputs(gen, B, H, T, D, dtype, dev, decay="sigmoid"):
+    """r, k, v, w, u as tests/test_kernels.py draws them: w in (0, 1); the
+    other decays as chip_smoke.py and tests/test_torch_kernels.py draw them
+    (w = 0, w = 1e-30, w = 1 exactly, strong and mild mixed)."""
     r = _rand(gen, (B, H, T, D), dtype, dev)
     k = (torch.randn((B, H, T, D), generator=gen, device=dev) * 0.3).to(dtype)
     v = _rand(gen, (B, H, T, D), dtype, dev)
     w = torch.sigmoid(torch.randn((B, H, T, D), generator=gen, device=dev)
-                      + 2.0).to(dtype)
+                      + 2.0)
+    if decay == "zero":
+        w[..., ::3, :] = 0.0
+    elif decay == "tiny":
+        w[..., 1::2, :] = 1e-30
+    elif decay == "one":
+        w[..., ::2] = 1.0
+        w[..., ::4, :] = 1.0
+    elif decay == "mixed":
+        strong = 10.0 ** (-6.0 + 3.0 * torch.rand(w.shape, generator=gen,
+                                                  device=dev))
+        mild = 0.95 + 0.049 * torch.rand(w.shape, generator=gen, device=dev)
+        w = torch.where(torch.rand(w.shape, generator=gen, device=dev) < 0.3,
+                        strong, mild)
     u = (torch.randn((H, D), generator=gen, device=dev) * 0.1).to(dtype)
-    return r, k, v, w, u
+    return r, k, v, w.to(dtype), u
+
+
+def _rwkv_check(o, s, args):
+    """o at the dtype's tolerance, S_last at 1e-4; bf16 also within one
+    bf16 ulp of the fp32 plain version (ref.rwkv6_rel_err) and against the
+    chunked plain version, the kernel's own algorithm."""
+    bf16 = o.dtype == torch.bfloat16
+    tol = 3e-2 if bf16 else 1e-4
+    o_ref, s_ref = R.rwkv6_ref(*args)
+    _assert_close(o, o_ref, tol)
+    _assert_close(s, s_ref, 1e-4)
+    if bf16:
+        rel = R.rwkv6_rel_err(o, *args)
+        assert rel <= RWKV_REL_TOL, f"rel_err {rel:.3e} > {RWKV_REL_TOL:g}"
+        o_c, s_c = R.rwkv6_chunked_ref(*args)
+        _assert_close(o, o_c, tol)
+        _assert_close(s, s_c, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -498,13 +533,30 @@ def test_rwkv6_kernel_matches_plain(card, dtype, D, B, H, T):
     inputs on both sides, so it is held at the scan's fp32 1e-4."""
     gen = torch.Generator(card).manual_seed(5)
     args = _rwkv_inputs(gen, B, H, T, D, dtype, card)
-    before = rwkv6_cuda.launches
+    before = (rwkv6_cuda.launches, rwkv6_cuda.tensor_core_launches)
     o, s = ops.rwkv6(*args)
-    assert rwkv6_cuda.launches == before + 1
+    assert rwkv6_cuda.launches == before[0] + 1
+    assert rwkv6_cuda.tensor_core_launches == before[1] + int(
+        dtype == torch.bfloat16)
     assert o.dtype == dtype and s.dtype == torch.float32
-    o_ref, s_ref = R.rwkv6_ref(*args)
-    _assert_close(o, o_ref, 1e-4 if dtype == torch.float32 else 3e-2)
-    _assert_close(s, s_ref, 1e-4)
+    _rwkv_check(o, s, args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("decay", ["zero", "tiny", "one", "mixed"])
+@pytest.mark.parametrize("B,H,T", [(2, 4, 131), (1, 8, 2048)])
+def test_rwkv6_kernel_across_decays(card, dtype, D, decay, B, H, T):
+    """Decays across the range a trained RWKV-6 has, w = 0, 1e-30 and 1
+    exactly included, at a ragged T over three chunks and over 32; bf16 on
+    the tensor-core kernel, as the library reports it."""
+    gen = torch.Generator(card).manual_seed(7)
+    args = _rwkv_inputs(gen, B, H, T, D, dtype, card, decay)
+    before = rwkv6_cuda.tensor_core_launches
+    o, s = rwkv6_cuda(*args)
+    assert rwkv6_cuda.tensor_core_launches == before + int(
+        dtype == torch.bfloat16)
+    _rwkv_check(o, s, args)
 
 
 def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(card):

@@ -725,7 +725,8 @@ def test_rwkv6_state_handoff():
 @pytest.mark.parametrize("T,chunk", [(32, 8), (48, 16), (16, 64)])
 def test_rwkv6_ref_matches_reference_chunked(T, chunk):
     """The port's one loop over T gives what the reference's chunked
-    recurrence gives, so the port needs no chunked version."""
+    recurrence gives, so the port needs no copy of that per-step chunked
+    loop (ref.rwkv6_chunked_ref is the bf16 kernel's other algorithm)."""
     j, t = _both(_rwkv_case(2, 2, T, 8, 8, seed=3))
     o, s = TR.rwkv6_ref(*t)
     o_j, s_j = JR.chunked_rwkv6_ref(*j, chunk=chunk)
@@ -764,6 +765,136 @@ def test_rwkv6_cuda_rejects_cpu_and_meta_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.rwkv6(*meta)    # off the CPU, ops goes to the wrapper or raises
     assert rwkv6_cuda.launches == before
+
+
+def _rwkv_decays(kind, shape, rs):
+    """Decays across the range a trained RWKV-6 has (w = exp(-exp(w_raw)),
+    models/blocks.py): ``sigmoid`` tests/test_kernels.py's (0.5, 0.99);
+    ``zero`` w = 0 exactly on a third of the steps; ``tiny`` w = 1e-30 on
+    every other step; ``one`` w = 1 exactly on the even channels and every
+    fourth step; ``mixed`` strong (1e-6 .. 1e-3) and mild (0.95 .. 0.999)
+    decays mixed within one chunk and channel."""
+    w = 1 / (1 + np.exp(-(rs.standard_normal(shape) + 2.0)))
+    if kind == "zero":
+        w[..., ::3, :] = 0.0
+    elif kind == "tiny":
+        w[..., 1::2, :] = 1e-30
+    elif kind == "one":
+        w[..., ::2] = 1.0
+        w[..., ::4, :] = 1.0
+    elif kind == "mixed":
+        strong = 10.0 ** rs.uniform(-6, -3, shape)
+        mild = rs.uniform(0.95, 0.999, shape)
+        w = np.where(rs.random_sample(shape) < 0.3, strong, mild)
+    return w.astype(np.float32)
+
+
+def _rwkv_range_case(T, kind, D=16, seed=11):
+    r, k, v, _, u = _rwkv_case(1, 2, T, D, D, seed=seed)
+    w = _rwkv_decays(kind, r.shape, np.random.RandomState(seed + T))
+    return r, k, v, w, u
+
+
+RWKV_C = autotile.RWKV_CHUNK
+RWKV_RAGGED_T = (1, 15, 16, 17, RWKV_C - 1, RWKV_C, RWKV_C + 1, 77,
+                 2 * RWKV_C + 3)
+RWKV_KINDS = ("sigmoid", "zero", "tiny", "one", "mixed")
+RWKV_REL_TOL = 2.0 ** -7     # chip_smoke.py's one bf16 ulp
+
+
+@pytest.mark.parametrize("kind", RWKV_KINDS)
+@pytest.mark.parametrize("T", RWKV_RAGGED_T)
+def test_rwkv6_chunked_ref_vs_reference_fp32(T, kind):
+    """The bf16 kernel's algorithm (chunks, sub-chunk products, products of
+    w over explicit ranges, split products) in fp32 against the reference's
+    loop and the Pallas kernel in interpret mode: o and S_last within 1e-4
+    at ragged T and across the range of decays, w = 0 and w = 1 included."""
+    j, t = _both(_rwkv_range_case(T, kind))
+    o, s = TR.rwkv6_chunked_ref(*t)
+    assert o.dtype == torch.float32 and o.shape == (1, 2, T, 16)
+    o_r, s_r = JR.rwkv6_ref(*j)
+    o_p, s_p = rwkv6_pallas(*j, bt=T, interpret=True)
+    for got, want in ((o, o_r), (s, s_r), (o, o_p), (s, s_p)):
+        _close(got, want, SCAN_TOL)
+
+
+@pytest.mark.parametrize("kind", RWKV_KINDS)
+@pytest.mark.parametrize("T", (17, RWKV_C + 1, 2 * RWKV_C + 3))
+def test_rwkv6_chunked_ref_vs_reference_bf16(T, kind):
+    """bf16 inputs at the kernel's rounding points: o within the bf16 gate
+    of the reference's loop and the Pallas kernel and within one bf16 ulp of
+    the loop in fp32 (ref.rwkv6_rel_err); S_last within 1e-4."""
+    j, t = _both(_rwkv_range_case(T, kind, D=64), "bfloat16")
+    o, s = TR.rwkv6_chunked_ref(*t)
+    assert o.dtype == torch.bfloat16 and s.dtype == torch.float32
+    o_r, s_r = JR.rwkv6_ref(*j)
+    o_p, s_p = rwkv6_pallas(*j, bt=T, interpret=True)
+    for got, want, tol in ((o, o_r, BF16_TOL), (o, o_p, BF16_TOL),
+                           (s, s_r, SCAN_TOL), (s, s_p, SCAN_TOL)):
+        _close(got, want, tol)
+    assert TR.rwkv6_rel_err(o, *t) <= RWKV_REL_TOL
+
+
+def test_rwkv6_rel_err_admits_the_rounding_and_no_planted_fault():
+    """tools/k4_fault_check on the CPU: the sound matrix form passes the
+    3e-2 gate, the ulp gate and S_last's 1e-4, and every planted fault (u
+    dropped, decay one step late, a chunk's state lost, the state in bf16)
+    is caught by at least one; the 3e-2 gate alone misses the bf16 state."""
+    import contextlib
+    import io
+    import json
+
+    from repro_torch.tools import k4_fault_check
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = k4_fault_check.main(["--H", "4", "--T", "150"])
+    rows = {r["variant"]: r for r in map(json.loads,
+                                        out.getvalue().splitlines())}
+    assert rc == 0 and rows["sound"]["caught_by"] == []
+    assert set(rows) == set(k4_fault_check.VARIANTS)
+    assert all(rows[v]["caught_by"] for v in rows if v != "sound")
+    assert "3e-2" not in rows["state_bf16"]["caught_by"]
+
+
+@pytest.mark.parametrize("B,H,T", [(1, 64, 2048), (2, 4, 2048), (1, 1, 77),
+                                   (4, 64, 2048), (1, 2, 1), (3, 5, 640)])
+def test_rwkv6_tiles_fill_the_card_and_leave_no_run_empty(B, H, T):
+    """Segments are a power of two, B x H x segments blocks fit one a SM
+    (or there is one segment), every run of chunks holds one at least, and the runs cover the chunks
+    in order; two segments at RWKV-6 7B's forward shape, 20 + 12 chunks."""
+    tiles = autotile.rwkv6_tiles(B, H, T, 64, 64)
+    P = tiles.segments
+    assert (tiles.chunk, tiles.sub) == (autotile.RWKV_CHUNK,
+                                       autotile.RWKV_SUB)
+    assert P & (P - 1) == 0 and (P == 1 or B * H * P <= autotile.H100_SMS)
+    starts = autotile.rwkv6_segment_starts(T, P)
+    assert starts[0] == 0 and starts[-1] == -(-T // RWKV_C)
+    assert all(b - a >= 1 for a, b in zip(starts, starts[1:]))
+    if (B, H, T) == (1, 64, 2048):
+        assert P == 2 and starts == [0, 20, 32]
+    assert autotile.rwkv6_tiles(B, H, T, 64, 64) is tiles
+
+
+def test_rwkv6_layout_and_header():
+    """TcLayout's shared memory (three stages, the hi/lo operand halves,
+    the scores, the state and two factor tables) fits the card at both
+    built head sizes; the header the build includes lists them, the chunk,
+    the sub-chunk and the carried chunk's cost, and csrc/rwkv6.cu builds
+    exactly that list; an unbuilt head size is refused."""
+    from repro_torch.kernels import _build
+    for dk, dv in autotile.RWKV_HEAD_DIMS:
+        assert autotile.rwkv6_smem_bytes(dk, dv) <= 232448
+    assert autotile.rwkv6_smem_bytes(64, 64) == 231952
+    text = _build.header("rwkv6")
+    assert f"#define LEGO_RWKV_CHUNK {autotile.RWKV_CHUNK}\n" in text
+    assert f"#define LEGO_RWKV_SUB {autotile.RWKV_SUB}\n" in text
+    assert "#define LEGO_RWKV_PRE_COST 0.375f\n" in text
+    assert "#define LEGO_RWKV_TC_TILES(X) X(16, 16) X(64, 64)\n" in text
+    src = (_build.CSRC_DIR / "rwkv6.cu").read_text()
+    assert "LEGO_RWKV_TC_TILES(LEGO_RWKV_TC)" in src
+    assert '#include "hopper.cuh"' in src
+    with pytest.raises(ValueError, match="no bf16 rwkv6 kernel"):
+        autotile.rwkv6_tiles(1, 2, 16, 32, 32)
 
 
 # ---------------------------------------------------------------------------
