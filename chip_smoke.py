@@ -6,7 +6,8 @@ Phases, each of which stops the run with a non-zero exit on failure:
 1. device: one sm_90 card; prints ``nvidia-smi``'s name and power limit;
 2. build: compiles every ``src/repro_torch/csrc/*.cu`` with nvcc (one process
    per source, all at once) and prints the build time, registers and
-   spills;
+   spills, and each K3 kernel's registers and spill bytes (a K3 kernel that
+   spills fails the run);
 3. each CUDA kernel against its plain PyTorch version on the card: the
    GEMM over the reference's shapes, ragged, decode-shaped (M = 1, 7),
    unaligned and one large product, in both dtypes, each aligned bf16 one
@@ -30,7 +31,13 @@ Phases, each of which stops the run with a non-zero exit on failure:
    every bf16 call checked to have taken the tensor-core kernel and held
    also to one bf16 ulp of the fp32 plain version (``ref.rwkv6_rel_err``)
    and to the chunked plain version (``ref.rwkv6_chunked_ref``); the Mamba
-   selective scan over dtype / state size / (Bt, L, Dm);
+   selective scan over dtype / state size / (Bt, L, Dm) (one Dm whose rows
+   are not 16-byte aligned) / decays (dt = 0 on a third of the steps, dt·A
+   below -104 on every other state, strong and mild decays mixed 30/70,
+   and the long memory of a trained Mamba: decays within ~1e-3 of 1),
+   h_last also held relative to its (b, d) row (``ref.state_rel_err``),
+   bf16 y also to one bf16 ulp of the fp32 plain version
+   (``ref.scan_rel_err``);
 4. the main paths, in bf16 with random weights from a seeded generator, the
    kernels' launch counters reset before and read after each run (and
    every K2 prefill launch checked to have been reported by the library as
@@ -79,7 +86,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and SDPA timed as CUDA graphs (the eager calls are paced by the host);
    K4 as a CUDA graph too (eager logged), its bound the larger of its
    bytes and of its own products at the bf16 rate plus its element-wise
-   work at the fp32 rate.
+   work at the fp32 rate; K3 as a CUDA graph (eager and the fp32 route
+   logged), beside its bytes bound its exp count and the special-function
+   units' floor at the SM clock nvidia-smi reads.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -122,6 +131,19 @@ BF16_REL_TOL = 3 * BF16_ULP
 # read; a dropped u term, a decay one step late or a chunk's state lost read
 # tens to hundreds of ulps
 RWKV_REL_TOL = BF16_ULP
+# K3's h_last (and, where h's memory is long, its fp32 y) against the fp32
+# plain version, relative to |want| plus the rms of want's row
+# (ref.state_rel_err, ref.scan_rel_err): over ~2000 steps of decays within
+# 1e-3 of 1 the kernel's ex2.approx, up to 2 ulps a step, compounds to
+# ~3.8e-4 in a plain-version model of it, past the absolute 1e-4; h
+# rounded to bf16 once a chunk reads ~3e-2 (tools/k3_fault_check.py)
+SCAN_ROW_TOL = 2.0 ** -10
+# K3 inputs: dt after a softplus, as tests/test_kernels.py draws it, and
+# the decays' range (ssm_inputs); the shapes: Jamba's forward, ragged L and
+# Dm, L = 1, and a Dm whose bf16 and fp32 rows are not 16-byte aligned
+SSM_DECAYS = ("softplus", "zero", "underflow", "mixed", "long_memory")
+SSM_SHAPES = ((1, 2048, 16384), (2, 77, 48), (2, 1, 32), (2, 16, 32),
+              (3, 45, 37))
 RWKV_DECAYS = ("sigmoid", "zero", "tiny", "one", "mixed")
 # bf16 K1 against the product in fp32 from the same inputs, relative to
 # |want| plus the rms of want's row (ref.gemm_rel_err): one rounding reads
@@ -314,6 +336,47 @@ def check_rwkv(name, o, s_last, args, quiet=False) -> float:
     return err
 
 
+def check_scan(name, y, h_last, args, quiet=False,
+               long_memory=False) -> tuple:
+    """A K3 output against the plain version on the same inputs: y and
+    h_last are fp32 sums of the same inputs on both sides (1e-4); a bf16 y
+    is rounded once from them, so the two may differ by one bf16 ulp, and
+    it is also held to one bf16 ulp of the plain version in fp32 relative
+    to |want| plus its row's rms (``ref.scan_rel_err``: the ulp gate's
+    absolute floor can miss a fault on small outputs).  h_last is also
+    held to SCAN_ROW_TOL relative to its (b, d) row (``ref.state_rel_err``).
+    Where h's memory is long (``long_memory``: decays within ~1e-3 of 1)
+    the exps' rounding compounds past 1e-4 of h's size, so fp32 y and
+    h_last are held by the row gates alone.  Returns (the max abs error of
+    y, the rel_err reading of y, the state_rel_err reading)."""
+    import torch
+
+    from repro_torch.kernels import ref as R
+    bf16 = y.dtype == torch.bfloat16
+    y_ref, h_ref = R.selective_scan_ref(*args)
+    err = (y.float() - y_ref.float()).abs().max().item()
+    if bf16:
+        err = check_close(f"{name} y", y, y_ref, BF16_ULP, quiet=quiet)
+    elif not long_memory:
+        err = check_close(f"{name} y", y, y_ref, SCAN_TOL, quiet=quiet)
+    if not long_memory:
+        check_close(f"{name} h_last", h_last, h_ref, SCAN_TOL, quiet=quiet)
+    h_rel = R.state_rel_err(h_last, *args)
+    rel = R.scan_rel_err(y, *args) if bf16 or long_memory else None
+    y_tol = BF16_ULP if bf16 else SCAN_ROW_TOL
+    if not quiet or h_rel > SCAN_ROW_TOL or (rel or 0.0) > y_tol:
+        log(f"  {name}: h_last state_rel_err={h_rel:.3e} (tol "
+            f"{SCAN_ROW_TOL:g})" + ("" if rel is None else
+                                    f", y rel_err={rel:.3e} (tol {y_tol:g})")
+            + " of |want| + row rms, fp32 plain")
+    if h_rel > SCAN_ROW_TOL:
+        fail(f"{name}: h_last outside {SCAN_ROW_TOL:g} of the fp32 plain "
+             "version")
+    if rel is not None and rel > y_tol:
+        fail(f"{name}: y outside {y_tol:g} of the fp32 plain version")
+    return err, rel, h_rel
+
+
 def on_rwkv_tensor_cores(n: int) -> str:
     """Fails unless all ``n`` K4 launches since the counters were reset went,
     as the library reports, to the tensor-core kernel (the bf16 route);
@@ -416,6 +479,14 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers, {len(spills)} with spills, {serial} with wgmma "
             f"serialized (log: {_build.lib_path(name).with_suffix('.log')})")
+    # K3's kernels one by one (T, N, S states a thread, 16-byte loads)
+    k3 = _ptxas_kernels(
+        _build.lib_path("ssm_scan").with_suffix(".log").read_text())
+    for kname, (regs, spill) in k3.items():
+        log(f"  ssm_scan {kname}: {regs} registers, {spill} bytes of spill "
+            "stores")
+    if not k3 or any(spill for _, spill in k3.values()):
+        fail(f"K3 kernels spill or were not found in the ptxas log: {k3}")
 
     gen = torch.Generator(dev).manual_seed(0)
 
@@ -450,13 +521,40 @@ def main() -> int:
         u = (0.1 * rand(H, D, dtype=torch.float32)).to(dtype)
         return r, k, v, w.to(dtype), u
 
-    def ssm_inputs(Bt, L, Dm, N, dtype):
+    def ssm_inputs(Bt, L, Dm, N, dtype, decay="softplus"):
         """x, dt, A, B, C, D as tests/test_kernels.py draws them (dt after a
-        softplus, A < 0); A and D fp32, as the Mamba block passes them."""
+        softplus, A < 0); A and D fp32, as the Mamba block passes them.
+        Other ``decay``s cover exp(dt·A)'s range, as
+        tests/test_torch_kernels.py draws them: ``zero`` dt = 0 (a decay
+        of exactly 1) on every third step, ``underflow`` A = -1e5 on the
+        odd states (dt·A below -104 wherever dt > 1.04e-3: the decay
+        underflows fp32), ``mixed`` A strong (|A| from 5 to 50) on 30% and
+        mild (|A| from 0.02 to 0.2, log-uniform) on 70% of the (d, n).
+        Strong decays come from A, as in a trained Mamba, not from a large
+        dt: dt·x then stays of the order of x, and y is no cancellation of
+        terms near 1e4 (where two fp32 sums in different orders differ by
+        more than 1e-4).  Mild decays keep h's memory to ~100 steps;
+        ``long_memory`` takes |A| log-uniform in [1e-3, 5e-2] on every
+        (d, n), as in a trained Mamba (dt in [1e-3, 0.1], |A| up to 16):
+        decays within ~1e-3 of 1 for most steps, h remembering hundreds
+        to thousands of them, where the exps' own rounding (ex2.approx
+        against torch.exp, up to 2 ulps a step) compounds past 1e-4 of h
+        (check_scan holds that draw by the row gates)."""
         x = rand(Bt, L, Dm, dtype=dtype)
         dt = torch.nn.functional.softplus(
-            rand(Bt, L, Dm, dtype=torch.float32) - 1.0).to(dtype)
+            rand(Bt, L, Dm, dtype=torch.float32) - 1.0)
+        if decay == "zero":
+            dt[:, ::3] = 0.0
+        dt = dt.to(dtype)
         A = -torch.exp(0.5 * rand(Dm, N, dtype=torch.float32))
+        if decay == "underflow":
+            A[:, 1::2] = -1e5
+        elif decay == "mixed":
+            unit = lambda: torch.rand(A.shape, generator=gen, device=dev)
+            strong, mild = 5.0 * 10.0 ** unit(), 0.02 * 10.0 ** unit()
+            A = -torch.where(unit() < 0.3, strong, mild)
+        elif decay == "long_memory":
+            A = -1e-3 * 50.0 ** torch.rand(A.shape, generator=gen, device=dev)
         B, C = rand(Bt, L, N, dtype=dtype), rand(Bt, L, N, dtype=dtype)
         return x, dt, A, B, C, torch.full((Dm,), 0.5, device=dev)
 
@@ -633,20 +731,37 @@ def main() -> int:
                 fail(f"{name}: the library reported another route than "
                      "the dtype's kernel")
             check_rwkv(name, o, s_last, args)
-    # the Mamba selective scan: y and h_last are fp32 sums of the same
-    # inputs on both sides (1e-4); a bf16 y is rounded once from them, so
-    # the two may differ by one bf16 ulp
-    for dtype, tol in ((torch.float32, SCAN_TOL), (torch.bfloat16, BF16_ULP)):
+    # the Mamba selective scan (check_scan: fp32 1e-4, bf16 one ulp and
+    # rel_err one ulp, h_last 1e-4 and SCAN_ROW_TOL of its row; the long
+    # memory by the row gates), through ops.ssm_scan (the one built S for
+    # each N) over N, the shapes and the decays
+    for dtype in (torch.float32, torch.bfloat16):
         tag = "fp32" if dtype == torch.float32 else "bf16"
         for N in STATE_DIMS:
-            for Bt, L, Dm in ((1, 2048, 16384), (2, 77, 48), (2, 1, 32),
-                              (2, 16, 32)):
-                args = ssm_inputs(Bt, L, Dm, N, dtype)
-                y, h_last = ssm_scan_cuda(*args)
-                y_ref, h_ref = R.selective_scan_ref(*args)
-                name = f"ssm_scan {tag} N={N} Bt={Bt} L={L} Dm={Dm}"
-                check_close(f"{name} y", y, y_ref, tol)
-                check_close(f"{name} h_last", h_last, h_ref, SCAN_TOL)
+            for Bt, L, Dm in SSM_SHAPES:
+                errs, rels, h_rels = [], {}, {}
+                for decay in SSM_DECAYS:
+                    args = ssm_inputs(Bt, L, Dm, N, dtype, decay)
+                    before = ssm_scan_cuda.launches
+                    y, h_last = ops.ssm_scan(*args)
+                    if ssm_scan_cuda.launches != before + 1:
+                        fail("ops.ssm_scan did not launch K3 once")
+                    long = decay == "long_memory"
+                    err, rels[decay], h_rels[decay] = check_scan(
+                        f"ssm_scan {tag} N={N} Bt={Bt} L={L} Dm={Dm} "
+                        f"decay={decay}", y, h_last, args, quiet=True,
+                        long_memory=long)
+                    if not long:
+                        errs.append(err)
+                y_tol = BF16_ULP if dtype == torch.bfloat16 else SCAN_TOL
+                log(f"  ssm_scan {tag} N={N} S={dict(autotile.SSM_TILES)[N]}"
+                    f" Bt={Bt} L={L} Dm={Dm}: decays but long_memory, y "
+                    f"within {y_tol:g} and h_last within {SCAN_TOL:g}, "
+                    f"max_abs_err {max(errs):.3e}; state_rel_err "
+                    + ", ".join(f"{d} {r:.3e}" for d, r in h_rels.items())
+                    + f" (tol {SCAN_ROW_TOL:g}); y rel_err "
+                    + ", ".join(f"{d} {r:.3e}" for d, r in rels.items()
+                                if r is not None))
     torch.cuda.synchronize()
     log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
 
@@ -1064,16 +1179,16 @@ def main() -> int:
         f"{time_ms(lambda: rwkv6_cuda(*args)):.4f} ms, bound "
         f"{bound(4 * Bw * Hw * Tw * Dw * Dw, 0, 4)[0]:.4f} ms (operations)")
     del args
-    # K3 at jamba's forward shape: Bt=1, L=2048, Dm=d_inner, N=d_state, bf16
+    # K3 at jamba's forward shape: Bt=1, L=2048, Dm=d_inner, N=d_state,
+    # bf16, timed as a CUDA graph (an eager call allocates y and h_last and
+    # is paced by the host; logged too)
     Bs, Ls, Ds, Ns = 1, 2048, jcfg.d_inner, jcfg.d_state
     args = ssm_inputs(Bs, Ls, Ds, Ns, bf)
     kern = lambda: ssm_scan_cuda(*args)
     plain = lambda: R.selective_scan_ref(*args)
-    (y, h_last), (y_ref, h_ref) = kern(), plain()
-    err = check_close("ssm_scan at the main path's shape y", y, y_ref,
-                      BF16_ULP)
-    check_close("ssm_scan at the main path's shape h_last", h_last, h_ref,
-                SCAN_TOL)
+    y, h_last = kern()
+    err, _, _ = check_scan("ssm_scan at the main path's shape", y, h_last,
+                           args)
     # per (l, d, n): dt*A, dA*h, (dt*x)*B, the add, h*C and its sum, in
     # fp32 (the exps run on the special-function units, not counted); x,
     # dt, B, C read and y written in bf16, A, D read and h_last written in
@@ -1082,11 +1197,35 @@ def main() -> int:
     nbytes = (2 * (3 * Bs * Ls * Ds + 2 * Bs * Ls * Ns)
               + 4 * (Ds * Ns + Ds + Bs * Ds * Ns))
     b_ms, b_by = bound(flops, nbytes, 4)
-    kernels.append(_row("ssm_scan", jamba_fwd_launches[3], err, kern, plain,
-                        None, b_ms, b_by,
-                        f"Bt={Bs} L={Ls} Dm={Ds} N={Ns} bf16", **SSM,
-                        no_library="no PyTorch call computes the selective "
-                        "scan"))
+    S = dict(autotile.SSM_TILES)[Ns]
+    row = _row("ssm_scan", jamba_fwd_launches[3], err, kern, plain, None,
+               b_ms, b_by, f"Bt={Bs} L={Ls} Dm={Ds} N={Ns} bf16 S={S}; ms "
+               "as a CUDA graph", graph=True, **SSM,
+               no_library="no PyTorch call computes the selective scan")
+    # the floor the design aims at: one exp per (l, d, n) on the special-
+    # function units, 16 per SM per clock, at the SM clock read right after
+    # the timing and at the card's maximum
+    exps = Bs * Ls * Ds * Ns
+    clk, clk_max = (_smi_mhz(q) for q in ("clocks.sm", "clocks.max.sm"))
+    sfu_ms = [exps / (16 * autotile.H100_SMS * c * 1e6) * 1e3
+              for c in (clk, clk_max)]
+    log(f"    {exps / 1e6:.1f} M exps: special-function floor "
+        f"{sfu_ms[0]:.4f} ms at clocks.sm {clk:g} MHz, {sfu_ms[1]:.4f} ms "
+        f"at clocks.max.sm {clk_max:g} MHz (the kernel at "
+        f"{row['ms'] / sfu_ms[1]:.2f}x it); {nbytes / row['ms'] / 1e6:.0f} "
+        f"GB/s, {b_ms / row['ms'] * 100:.1f}% of the bytes bound")
+    log(f"    eager (host-paced) calls: kernel {time_ms(kern):.4f} ms")
+    kernels.append(row)
+    del args, y, h_last
+    # the fp32 route at the same shape, logged (phase 5's depth-2 forwards
+    # run it): x, dt, B, C read and y written in fp32
+    args = ssm_inputs(Bs, Ls, Ds, Ns, torch.float32)
+    f32_bytes = 4 * (3 * Bs * Ls * Ds + 2 * Bs * Ls * Ns + Ds * Ns + Ds
+                     + Bs * Ds * Ns)
+    log(f"  ssm_scan fp32 [Bt={Bs} L={Ls} Dm={Ds} N={Ns}]: "
+        f"{time_ms(lambda: ssm_scan_cuda(*args), graph=True):.4f} ms as a "
+        f"CUDA graph, bytes bound {bound(0, f32_bytes, 4)[0]:.4f} ms")
+    del args
     # one Jamba decode step's MoE FFN and Mamba step at full width (batch 4:
     # MoE capacity 1, so every expert's weights are read for one row),
     # each against reading its weights once
@@ -1529,6 +1668,36 @@ def _clocks() -> str:
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+
+
+def _smi_mhz(query: str) -> float:
+    """One clock of the card, in MHz, from nvidia-smi (e.g. clocks.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def _ptxas_kernels(text: str) -> dict:
+    """{kernel: (registers, spill store bytes)} from ``-Xptxas -v``'s log
+    of ``csrc/ssm_scan.cu``, each kernel named by its template arguments
+    (dtype, N, S states a thread, 16-byte loads)."""
+    import re
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            t = re.search(r"kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb(\d)E",
+                          m.group(1))
+            name = (f"{'bf16' if t[1] != 'f' else 'fp32'} N={t[2]} S={t[3]} "
+                    f"vec={t[4]}" if t else m.group(1))
+        elif name and "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split()[-1])
+            out[name] = (out.get(name, (0, 0))[0], spill)
+        elif name and "Used " in ln:
+            regs = int(ln.split("Used ")[1].split()[0])
+            out[name] = (regs, out.get(name, (0, 0))[1])
+    return out
 
 
 def _leaves(tree):

@@ -7,7 +7,9 @@ use into ``build/lib<name>-<hash>.so`` inside the package (a directory that
 generated for it, so an edit never loads a stale library.  A source whose
 instantiations Python decides (``flash_attention``: the attention tiles,
 ``gemm``: the GEMM tiles and ring depths, ``rwkv6``: the chunk, the
-sub-chunk and the built head sizes of :mod:`repro_torch.kernels.autotile`) gets that header written beside its
+sub-chunk and the built head sizes, ``ssm_scan``: the chunk, the block
+size and the built (N, states a thread) pairs of
+:mod:`repro_torch.kernels.autotile`) gets that header written beside its
 library and included before it (``-include``).  No PyTorch header is
 compiled, which keeps a build to seconds.  Nothing here runs at import time.
 """
@@ -60,6 +62,9 @@ def header(name: str) -> str:
     if name == "rwkv6":
         from .autotile import rwkv6_tiles_header
         return rwkv6_tiles_header()
+    if name == "ssm_scan":
+        from .autotile import ssm_tiles_header
+        return ssm_tiles_header()
     return ""
 
 

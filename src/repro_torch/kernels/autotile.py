@@ -457,3 +457,37 @@ def rwkv6_tiles_header() -> str:
             f"#define LEGO_RWKV_SUB {RWKV_SUB}\n"
             f"#define LEGO_RWKV_PRE_COST {RWKV_PRE_COST!r}f\n"
             f"#define LEGO_RWKV_TC_TILES(X) {tc}\n")
+
+
+# K3 (Mamba S6 selective scan): a block of SSM_THREADS consumer threads
+# and SSM_PRODUCERS producer warps steps the block's channels over chunks
+# of SSM_CHUNK time steps, staged by the producers in a ring of SSM_STAGES
+# (a power of two with the chunk: the consumers find a step's row by a
+# mask); a consumer owns S consecutive states of one channel, so N / S
+# lanes share a channel.  One S is built for each N (SSM_TILES, both
+# dtypes): fewer lanes a channel means fewer instructions a state (the
+# step's loads of x, dt, B and C and its partial y are shared by S
+# states), more lanes more warps to hide a step's latency.  At Jamba's
+# Bt 1, Dm 16384, N 16 on an H100 (tools/k3_probe.py) S = 8 (two lanes a
+# channel, 1.9 consumer warps a scheduler) took 0.183 ms, S = 4 0.215 ms
+# and S = 16 0.30-0.40 ms; N = 8 takes S = 4, which gives the same two
+# lanes a channel and the same grid, and N = 4 its one lane of 4
+SSM_CHUNK = 32
+SSM_THREADS = 128
+SSM_STAGES = 2
+SSM_PRODUCERS = 2
+SSM_TILES = ((4, 4), (8, 4), (16, 8))
+SSM_STATE_DIMS = tuple(n for n, _ in SSM_TILES)
+
+
+def ssm_tiles_header() -> str:
+    """The header ``nvcc`` includes before ``csrc/ssm_scan.cu``: the chunk,
+    the consumer threads, the ring's stages and an X-macro list X(N, S) of
+    the kernels to build, one S (states a thread) for each N."""
+    tiles = " ".join(f"X({n}, {s})" for n, s in SSM_TILES)
+    return ("// written by repro_torch.kernels.autotile; do not edit\n"
+            f"#define LEGO_SSM_CHUNK {SSM_CHUNK}\n"
+            f"#define LEGO_SSM_THREADS {SSM_THREADS}\n"
+            f"#define LEGO_SSM_STAGES {SSM_STAGES}\n"
+            f"#define LEGO_SSM_PRODUCERS {SSM_PRODUCERS}\n"
+            f"#define LEGO_SSM_TILES(X) {tiles}\n")

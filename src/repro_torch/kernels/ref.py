@@ -10,6 +10,8 @@ semantics, fp32 accumulation):
   decode_attention_split_ref: the same, cut at the decode kernel's chunk
                          edges and merged as its combine pass merges
   selective_scan_ref   : the Mamba S6 scan, a loop over L
+  scan_rel_err         : a scan's y against it run in fp32, per (b, l) row
+  state_rel_err        : a scan's h_last against it run in fp32, per (b, d)
   rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
   rwkv6_chunked_ref    : the same in the bf16 kernel's chunked matrix form
 
@@ -386,3 +388,36 @@ def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((Bt, 0, Dm), dtype=torch.float32, device=x.device))
     return (y + xf * D_skip.float()).to(x.dtype), h
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest |got - want| / (|want| + rms of want's last-axis row)."""
+    rms = want.square().mean(-1, keepdim=True).sqrt()
+    den = (want.abs() + rms).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((got.float() - want).abs() / den).max().item()
+
+
+def scan_rel_err(got, x, dt, A, B, C, D_skip) -> float:
+    """How far a scan output ``got`` is from :func:`selective_scan_ref` run
+    in fp32 on the same inputs: the largest |got - want| / (|want| + rms of
+    want's (b, l) row).  A bf16 y is rounded once from fp32 h and y (at
+    most 2^-8 of |want|); a decay taken one step late, the skip x·D
+    dropped or one lane's states lost move rows by tenths of their rms,
+    and the 2^-7 + 2^-7·|want| gate (its absolute floor) can miss a fault
+    on small outputs."""
+    want, _ = selective_scan_ref(*(t.float() for t in (x, dt, A, B, C,
+                                                       D_skip)))
+    return _row_rel_err(got, want)
+
+
+def state_rel_err(h_last, x, dt, A, B, C, D_skip) -> float:
+    """How far a scan's final state ``h_last`` (Bt, Dm, N) is from
+    :func:`selective_scan_ref`'s run in fp32 on the same inputs: the
+    largest |got - want| / (|want| + rms of want's (b, d) row over the N
+    states).  Where decays lie within ~1e-3 of 1 (h remembers ~1000 steps)
+    the exps' own rounding compounds over the memory, so h is held
+    relative to its size, not to an absolute 1e-4; h rounded to bf16 reads
+    up to 2^-8 of |want|."""
+    _, want = selective_scan_ref(*(t.float() for t in (x, dt, A, B, C,
+                                                       D_skip)))
+    return _row_rel_err(h_last, want)

@@ -6,16 +6,24 @@ fp32 state h (Dm, N) per batch row:
 
     h_l = exp(dt_l·A)·h_{l-1} + (dt_l·x_l)·B_l,    y_l = h_l·C_l + x_l·D
 
-Bound: bytes by the card's peak rates (at Bt = 1, L = 2048, Dm = 16384,
-N = 16 in bf16, 203.5 MB in 0.061 ms at 3.35 TB/s against 3.2 GFLOP in
-0.048 ms at 67 TFLOP/s), though its 537 M exps on the special-function
-units (~0.13 ms) are the likely floor.  Design: the TPU grid carried h
-across L-chunks in VMEM, which a GPU grid cannot, so the whole L loop runs
-inside one block with h in registers; a thread owns one channel and 4 of
-its states, the N/4 lanes of a channel sum y = h·C with a warp shuffle,
-and chunks of x, dt, B and C are loaded into registers one chunk ahead and
-staged in shared memory.  Any L and Dm (masked); N ∈ {4, 8, 16} are built.
-The state starts at zero (no ``h0``, as in the Pallas kernel).
+Bound: its 537 M exps at Bt = 1, L = 2048, Dm = 16384, N = 16 run on the
+special-function units, 16 per SM per clock (~0.13 ms on 132 SMs), above
+both of the card's peak-rate bounds (203.5 MB in 0.061 ms at 3.35 TB/s;
+3.2 GFLOP in 0.048 ms at 67 TFLOP/s).  Design: one pass over L (the TPU
+grid carried h across L-chunks in VMEM; here the whole L loop runs inside
+one block with h in registers), built so that a step costs issue slots
+and not latency: one ``ex2.approx.ftz`` per exp (log2(e) folded into A); a
+consumer thread owns S states of one channel, so that the step's loads and
+its y are shared by S states, and the N / S lanes of a channel sum their
+partial y when the chunk is written out (no shuffle in the step); the
+steps are software-pipelined (loads two steps ahead, decays one step
+ahead), whole chunks unrolled with constant shared-memory offsets; two
+producer warps copy chunks of x, dt, B and C into a ring of shared memory
+with cp.async and write y back, so the consumers never wait on device
+memory.  One S is built for each N
+(:data:`repro_torch.kernels.autotile.SSM_TILES`: 8 at N = 16).  Any L and
+Dm (masked); N ∈ {4, 8, 16} are built.  The state starts at zero (no
+``h0``, as in the Pallas kernel).
 
 ``ssm_scan_cuda`` checks its inputs and raises on anything the kernel does
 not take, launches on the current stream, raises if the launch was refused,
@@ -31,8 +39,8 @@ import ctypes
 import torch
 
 from . import _build
+from .autotile import SSM_STATE_DIMS as STATE_DIMS
 
-STATE_DIMS = (4, 8, 16)   # built N
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

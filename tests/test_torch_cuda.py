@@ -45,6 +45,12 @@ TOLS = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 BF16_REL_TOL = 3 * 2.0 ** -7
 # bf16 K4 likewise (ref.rwkv6_rel_err): one bf16 ulp
 RWKV_REL_TOL = 2.0 ** -7
+# K3 inputs: dt after a softplus and the decays' range (_ssm_inputs)
+SSM_DECAYS = ("softplus", "zero", "underflow", "mixed", "long_memory")
+# K3's h_last (and, at long_memory, its fp32 y) relative to |want| plus
+# the rms of want's row (ref.state_rel_err, ref.scan_rel_err), as
+# chip_smoke.py's SCAN_ROW_TOL
+SCAN_ROW_TOL = 2.0 ** -10
 
 
 @pytest.fixture
@@ -577,13 +583,29 @@ def test_rwkv6_wrapper_rejects_what_the_kernel_does_not_take(card):
         rwkv6_cuda(flat[1:].view(r.shape), k, v, w, u)
 
 
-def _ssm_inputs(gen, Bt, L, Dm, N, dtype, dev):
+def _ssm_inputs(gen, Bt, L, Dm, N, dtype, dev, decay="softplus"):
     """x, dt, A, B, C, D as tests/test_kernels.py draws them (dt after a
-    softplus, A < 0); A and D fp32, as the Mamba block passes them."""
+    softplus, A < 0); A and D fp32, as the Mamba block passes them.  Other
+    ``decay``s cover exp(dt·A)'s range as chip_smoke.py draws them: dt = 0
+    on every third step, A = -1e5 on the odd states (dt·A below -104),
+    strong (|A| 5 to 50) and mild (|A| 0.02 to 0.2) decays mixed 30/70
+    over (d, n), and ``long_memory`` |A| log-uniform in [1e-3, 5e-2] (h
+    remembers hundreds to thousands of steps, as in a trained Mamba)."""
     x = _rand(gen, (Bt, L, Dm), dtype, dev)
     dt = torch.nn.functional.softplus(
-        torch.randn((Bt, L, Dm), generator=gen, device=dev) - 1.0).to(dtype)
+        torch.randn((Bt, L, Dm), generator=gen, device=dev) - 1.0)
+    if decay == "zero":
+        dt[:, ::3] = 0.0
+    dt = dt.to(dtype)
     A = -torch.exp(0.5 * torch.randn((Dm, N), generator=gen, device=dev))
+    if decay == "underflow":
+        A[:, 1::2] = -1e5
+    elif decay == "mixed":
+        unit = lambda: torch.rand(A.shape, generator=gen, device=dev)
+        strong, mild = 5.0 * 10.0 ** unit(), 0.02 * 10.0 ** unit()
+        A = -torch.where(unit() < 0.3, strong, mild)
+    elif decay == "long_memory":
+        A = -1e-3 * 50.0 ** torch.rand((Dm, N), generator=gen, device=dev)
     B = _rand(gen, (Bt, L, N), dtype, dev)
     C = _rand(gen, (Bt, L, N), dtype, dev)
     D = torch.full((Dm,), 0.5, device=dev)
@@ -593,17 +615,74 @@ def _ssm_inputs(gen, Bt, L, Dm, N, dtype, dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N", STATE_DIMS)
 @pytest.mark.parametrize("Bt,L,Dm", [(1, 2048, 16384), (2, 77, 48),
-                                     (2, 1, 32), (2, 16, 32)])
-def test_ssm_scan_kernel_matches_plain(card, dtype, N, Bt, L, Dm):
+                                     (2, 1, 32), (2, 16, 32), (3, 45, 37)])
+@pytest.mark.parametrize("decay", SSM_DECAYS)
+def test_ssm_scan_kernel_matches_plain(card, dtype, N, Bt, L, Dm, decay):
+    """Through ops.ssm_scan: y at 1e-4 (fp32) or one bf16 ulp, h_last at
+    1e-4 and within SCAN_ROW_TOL of its (b, d) row (ref.state_rel_err), a
+    bf16 y also within one ulp of the fp32 plain version relative to its
+    row's scale (ref.scan_rel_err).  Over a long memory the exps' rounding
+    compounds past 1e-4 of h, so there fp32 y and h_last are held by the
+    row gates alone.  Dm = 37 takes the element-wise loads."""
     gen = torch.Generator(card).manual_seed(7)
-    args = _ssm_inputs(gen, Bt, L, Dm, N, dtype, card)
+    args = _ssm_inputs(gen, Bt, L, Dm, N, dtype, card, decay)
     before = ssm_scan_cuda.launches
     y, h = ops.ssm_scan(*args)
     assert ssm_scan_cuda.launches == before + 1
     assert y.dtype == dtype and h.dtype == torch.float32
     y_ref, h_ref = R.selective_scan_ref(*args)
+    long = decay == "long_memory"
+    if dtype == torch.bfloat16:
+        _assert_close(y, y_ref, 2.0 ** -7)
+        assert R.scan_rel_err(y, *args) <= 2.0 ** -7
+    elif long:
+        assert R.scan_rel_err(y, *args) <= SCAN_ROW_TOL
+    else:
+        _assert_close(y, y_ref, 1e-4)
+    if not long:
+        _assert_close(h, h_ref, 1e-4)
+    assert R.state_rel_err(h, *args) <= SCAN_ROW_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_misaligned_operands(card, dtype):
+    """x, dt, B and C one element past a 16-byte boundary, through
+    ops.ssm_scan: all four take the element-wise loads."""
+    gen = torch.Generator(card).manual_seed(13)
+    args = list(_ssm_inputs(gen, 2, 70, 64, 16, dtype, card, "mixed"))
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for i in (0, 1, 3, 4):       # x, dt, B, C
+        args[i] = shifted(args[i])
+    assert args[0].data_ptr() % 16 != 0 and args[3].data_ptr() % 16 != 0
+    y, h = ops.ssm_scan(*args)
+    y_ref, h_ref = R.selective_scan_ref(*args)
     _assert_close(y, y_ref, 1e-4 if dtype == torch.float32 else 2.0 ** -7)
     _assert_close(h, h_ref, 1e-4)
+
+
+def test_ssm_scan_in_a_cuda_graph(card):
+    """ops.ssm_scan captured in a CUDA graph and replayed on new inputs
+    gives what an eager call gives on them."""
+    gen = torch.Generator(card).manual_seed(12)
+    args = _ssm_inputs(gen, 1, 200, 1024, 16, torch.bfloat16, card)
+    ops.ssm_scan(*args)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, h = ops.ssm_scan(*args)
+    new = _ssm_inputs(gen, 1, 200, 1024, 16, torch.bfloat16, card, "mixed")
+    for t, n in zip(args, new):
+        t.copy_(n)
+    g.replay()
+    torch.cuda.synchronize()
+    y_e, h_e = ops.ssm_scan(*new)
+    assert torch.equal(y, y_e) and torch.equal(h, h_e)
 
 
 def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(card):

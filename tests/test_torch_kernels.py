@@ -995,3 +995,177 @@ def test_ssm_scan_cuda_rejects_cpu_and_meta_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.ssm_scan(*meta)    # off the CPU, ops goes to the wrapper or raises
     assert ssm_scan_cuda.launches == before
+
+
+# the range exp(dt·A) takes in a trained Mamba (dt after a softplus of a
+# learned projection, A learned per (d, n)), as chip_smoke.py and
+# tests/test_torch_cuda.py draw it: dt = 0 (a decay of exactly 1) on every
+# third step, A = -1e5 on the odd states (dt·A below -104: the decay
+# underflows fp32), strong (|A| 5 to 50) and mild (|A| 0.02 to 0.2) decays
+# mixed 30/70 over (d, n), and the long memory of a trained Mamba (|A|
+# log-uniform in [1e-3, 5e-2]: decays within ~1e-3 of 1)
+SSM_DECAYS = ("zero", "underflow", "mixed", "long_memory")
+# K3's h_last against the fp32 plain version relative to its (b, d) row
+# (ref.state_rel_err), as chip_smoke.py's SCAN_ROW_TOL
+SCAN_ROW_TOL = 2.0 ** -10
+
+
+def _ssm_decay_case(Bt, L, Dm, N, decay, seed=0):
+    x, dt, A, B, C, D = _ssm_case(Bt, L, Dm, N, seed=seed)
+    rs = np.random.RandomState(seed + 100)
+    if decay == "zero":
+        dt[:, ::3] = 0.0
+    elif decay == "underflow":
+        A[:, 1::2] = -1e5
+        assert (dt[..., None] * A[:, 1::2]).max() < -104.0
+    elif decay == "mixed":
+        strong = 5.0 * 10.0 ** rs.uniform(size=A.shape)
+        mild = 0.02 * 10.0 ** rs.uniform(size=A.shape)
+        A = -np.where(rs.uniform(size=A.shape) < 0.3, strong,
+                      mild).astype(np.float32)
+    elif decay == "long_memory":
+        A = (-1e-3 * 50.0 ** rs.uniform(size=A.shape)).astype(np.float32)
+    return x, dt, A, B, C, D
+
+
+@pytest.mark.parametrize("decay", SSM_DECAYS)
+def test_selective_scan_ref_across_decays_vs_pallas_interpret(decay):
+    """The port's loop against the Pallas kernel in interpret mode and the
+    reference's associative scan over the decays' range, in fp32."""
+    j, t = _both(_ssm_decay_case(2, 32, 16, 8, decay, seed=11))
+    y, h = TR.selective_scan_ref(*t)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    y_p, h_p = ssm_scan_pallas(*j, bd=8, bl=16, interpret=True)
+    y_r, h_r = JR.selective_scan_ref(*j)
+    for got, want in ((y, y_p), (h, h_p), (y, y_r), (h, h_r)):
+        _close(got, want, SCAN_TOL)
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("decay", SSM_DECAYS)
+def test_selective_scan_ref_across_decays_bf16(decay, N):
+    """bf16 x, dt, B, C over the decays' range: the port's loop against the
+    reference's, y at the bf16 tolerance and h_last (fp32 from the same
+    rounded inputs) at the scan's; the fp32 plain version reads within one
+    bf16 ulp by ``scan_rel_err``."""
+    x, dt, A, B, C, D = _ssm_decay_case(2, 45, 37, N, decay, seed=N)
+    jb, tb = _both((x, dt, B, C), "bfloat16")
+    jf, tf = _both((A, D))
+    args = (tb[0], tb[1], tf[0], tb[2], tb[3], tf[1])
+    y, h = TR.selective_scan_ref(*args)
+    y_j, h_j = JR.selective_scan_ref(jb[0], jb[1], jf[0], jb[2], jb[3], jf[1])
+    _close(y, y_j, BF16_TOL)
+    _close(h, h_j, SCAN_TOL)
+    assert TR.scan_rel_err(y, *args) <= 2.0 ** -8 + 1e-6
+
+
+def test_scan_rel_err_reads_rounding_and_scales():
+    """``scan_rel_err``: 0 for the fp32 plain version itself, at most half
+    an ulp (2^-8) for its bf16 rounding, unchanged when y's scale changes
+    (x and D scaled together), and the skip dropped reads far above one
+    ulp."""
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in
+                         _ssm_case(2, 40, 24, 16, seed=9))
+    y, _ = TR.selective_scan_ref(x, dt, A, B, C, D)
+    assert TR.scan_rel_err(y, x, dt, A, B, C, D) == 0.0
+    rounded = TR.scan_rel_err(y.bfloat16(), x, dt, A, B, C, D)
+    assert 0.0 < rounded <= 2.0 ** -8
+    y4, _ = TR.selective_scan_ref(4 * x, dt, A, B, C, D)
+    scaled = TR.scan_rel_err(y4.bfloat16(), 4 * x, dt, A, B, C, D)
+    assert scaled == pytest.approx(rounded, rel=1e-5)
+    no_skip = y - x * D
+    assert TR.scan_rel_err(no_skip, x, dt, A, B, C, D) > 10 * 2.0 ** -7
+
+
+def test_k3_gates_admit_the_sound_scan_and_no_planted_fault():
+    """tools/k3_fault_check on the CPU: the sound plain version passes the
+    bf16 K3 gates in both decay draws (softplus and long memory), and each
+    planted fault is caught by at least one gate in each."""
+    import contextlib
+    import io
+    import json
+
+    from repro_torch.tools import k3_fault_check
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = k3_fault_check.main(["--L", "100", "--Dm", "48"])
+    rows = {(r["variant"], r["decay"]): r
+            for r in map(json.loads, buf.getvalue().splitlines())}
+    assert rc == 0
+    assert set(rows) == {(v, d) for v in k3_fault_check.VARIANTS
+                         for d in k3_fault_check.DECAYS}
+    assert k3_fault_check.STATE_ROW_TOL == SCAN_ROW_TOL
+    for (name, _), row in rows.items():
+        assert bool(row["caught_by"]) == (name != "sound"), row
+
+
+def _scan_with_decay_dt(x, dt, dt_decay, A, B, bias=0.0, h_bf16_every=0):
+    """h_last of the scan with each step's decay taken from ``dt_decay``,
+    scaled by (1 + ``bias``), and h rounded to bf16 every
+    ``h_bf16_every`` steps (0: never)."""
+    h = torch.zeros(x.shape[0], x.shape[2], A.shape[1])
+    for l in range(x.shape[1]):
+        h = (torch.exp(dt_decay[:, l, :, None] * A) * (1.0 + bias) * h
+             + (dt[:, l] * x[:, l])[:, :, None] * B[:, l, None, :])
+        if h_bf16_every and (l + 1) % h_bf16_every == 0:
+            h = h.bfloat16().float()
+    return h
+
+
+def test_state_rel_err_reads_rounding_and_scales():
+    """``state_rel_err``: 0 for the plain version's own h_last, at most
+    2^-8 for it rounded to bf16, unchanged when h's scale changes (x
+    scaled), and a decay one step late reads far above SCAN_ROW_TOL."""
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in
+                         _ssm_case(2, 40, 24, 16, seed=9))
+    _, h = TR.selective_scan_ref(x, dt, A, B, C, D)
+    assert TR.state_rel_err(h, x, dt, A, B, C, D) == 0.0
+    rounded = TR.state_rel_err(h.bfloat16().float(), x, dt, A, B, C, D)
+    assert 0.0 < rounded <= 2.0 ** -8
+    _, h4 = TR.selective_scan_ref(4 * x, dt, A, B, C, D)
+    scaled = TR.state_rel_err(h4.bfloat16().float(), 4 * x, dt, A, B, C, D)
+    assert scaled == pytest.approx(rounded, rel=1e-5)
+    dt_late = torch.cat([dt[:, :1], dt[:, :-1]], dim=1)
+    h_late = _scan_with_decay_dt(x, dt, dt_late, A, B)
+    assert TR.state_rel_err(h_late, x, dt, A, B, C, D) > 10 * SCAN_ROW_TOL
+
+
+def test_state_row_gate_admits_the_exps_rounding_not_h_in_bf16():
+    """SCAN_ROW_TOL over 2048 steps of the long-memory draw: every decay 2
+    fp32 ulps high (ex2.approx's most, as a bias that compounds over h's
+    memory) stays under it, though it moves h past the absolute 1e-4; h
+    rounded to bf16 once a chunk of 32 steps reads above it."""
+    x, dt, A, B, C, D = (torch.from_numpy(a) for a in
+                         _ssm_decay_case(1, 2048, 16, 16, "long_memory",
+                                         seed=3))
+    _, h = TR.selective_scan_ref(x, dt, A, B, C, D)
+    biased = _scan_with_decay_dt(x, dt, dt, A, B, bias=2.0 ** -23)
+    assert (biased - h).abs().max().item() > 1e-4
+    assert TR.state_rel_err(biased, x, dt, A, B, C, D) < SCAN_ROW_TOL / 2
+    h_bf16 = _scan_with_decay_dt(x, dt, dt, A, B, h_bf16_every=32)
+    assert TR.state_rel_err(h_bf16, x, dt, A, B, C, D) > 4 * SCAN_ROW_TOL
+
+
+def test_ssm_layout_and_header():
+    """The K3 header lists exactly SSM_TILES, one states-a-thread S for
+    each built N, the chunk, the consumer threads and the ring's stages,
+    and the source instantiates from it (its static_assert holds each
+    tile's shared memory to one block's budget at build time)."""
+    from repro_torch.kernels import _build
+    text = _build.header("ssm_scan")
+    assert f"#define LEGO_SSM_CHUNK {autotile.SSM_CHUNK}\n" in text
+    assert f"#define LEGO_SSM_THREADS {autotile.SSM_THREADS}\n" in text
+    tiles = " ".join(f"X({n}, {s})" for n, s in autotile.SSM_TILES)
+    assert f"#define LEGO_SSM_TILES(X) {tiles}\n" in text
+    src = (_build.CSRC_DIR / "ssm_scan.cu").read_text()
+    assert "LEGO_SSM_TILES(LEGO_SSM_TILE)" in src
+    assert "ex2.approx.ftz.f32" in src and "exp2f(" not in src
+    assert autotile.SSM_STATE_DIMS == (4, 8, 16)
+    assert [n for n, _ in autotile.SSM_TILES] == list(autotile.SSM_STATE_DIMS)
+    assert dict(autotile.SSM_TILES)[16] == 8
+    assert f"#define LEGO_SSM_STAGES {autotile.SSM_STAGES}\n" in text
+    assert f"#define LEGO_SSM_PRODUCERS {autotile.SSM_PRODUCERS}\n" in text
+    assert "static_assert(BYTES <= 232448" in src
+    for N, S in autotile.SSM_TILES:
+        assert N % S == 0 and S % 4 == 0
+        assert autotile.SSM_THREADS // (N // S) % 32 == 0
