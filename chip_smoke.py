@@ -37,16 +37,25 @@ Phases, each of which stops the run with a non-zero exit on failure:
    and the long memory of a trained Mamba: decays within ~1e-3 of 1),
    h_last also held relative to its (b, d) row (``ref.state_rel_err``),
    bf16 y also to one bf16 ulp of the fp32 plain version
-   (``ref.scan_rel_err``);
+   (``ref.scan_rel_err``); and the fp32 scan over a long memory at the
+   main shape, kernel and fp32 plain version, against the scan in float64
+   (each built N; each reading also as a multiple of the 1e-4 gate, held
+   at its measured tolerance, F64_KERNEL_TOL and F64_PLAIN_TOL);
 4. the main paths, in bf16 with random weights from a seeded generator, the
    kernels' launch counters reset before and read after each run (and
    every K2 prefill launch checked to have been reported by the library as
-   a launch of the tensor-core kernel):
+   a launch of the tensor-core kernel).  Every decode step runs the serve
+   step of ``build_serve_step``, captured in a CUDA graph on its first
+   call and replayed (the counters count replays); its tokens are held to
+   the eager step's (``TF.decode_step`` / ``ED.decode_step_encdec`` in the
+   same loop), and its time at batch 4 beside the eager step's, the
+   weight-read bound and one profiled replay's device-busy time:
    a. Mistral-NeMo-12B at full width and depth — ``forward`` on a
       2048-token prompt and ``generate`` (batch 4, prompt 16, 24 new);
       then decode steps at batch 4 over a 4096-position cache (every K2
-      decode call split), on the host clock and, for one step, its
-      device-busy time and K2 decode's part of it from ``torch.profiler``;
+      decode call split), eager and captured, on the host clock and, for
+      one step of each, its device-busy time (and K2 decode's part of the
+      eager step's) from ``torch.profiler``;
    b. RWKV-6 7B at full width and depth — the same two runs (``forward``
       through the wkv kernel once per layer, every call on its tensor-core
       kernel as the library reports it, ``generate`` through the plain
@@ -138,6 +147,14 @@ RWKV_REL_TOL = BF16_ULP
 # ~3.8e-4 in a plain-version model of it, past the absolute 1e-4; h
 # rounded to bf16 once a chunk reads ~3e-2 (tools/k3_fault_check.py)
 SCAN_ROW_TOL = 2.0 ** -10
+# the fp32 kernel and the fp32 plain scan (torch.exp, the card's expf) over
+# a long memory (decays within ~1e-3 of 1) against the scan in float64,
+# rtol = atol: neither holds to SCAN_TOL there (each exp's rounding bias
+# compounds over h's memory, and y sums N states of h); each is held at
+# the tolerance measured at the main shape (rtol = atol at which each
+# passes: kernel 3.9e-4 to 6.7e-4, plain 9.4e-4 to 1.27e-3 over N = 4, 8,
+# 16 and three draws on an H100)
+F64_KERNEL_TOL, F64_PLAIN_TOL = 1e-3, 2e-3
 # K3 inputs: dt after a softplus, as tests/test_kernels.py draws it, and
 # the decays' range (ssm_inputs); the shapes: Jamba's forward, ragged L and
 # Dm, L = 1, and a Dm whose bf16 and fp32 rows are not 16-byte aligned
@@ -762,6 +779,31 @@ def main() -> int:
                     + f" (tol {SCAN_ROW_TOL:g}); y rel_err "
                     + ", ".join(f"{d} {r:.3e}" for d, r in rels.items()
                                 if r is not None))
+    # the fp32 route over a long memory against the scan in float64, the
+    # arbiter of the kernel and of the fp32 plain scan, at the main shape
+    # for each built N: each reading as max |got - want| and as the ratio
+    # |got - want| / (tol + tol |want|) at SCAN_TOL (at most 1 within it;
+    # with rtol = atol the ratio scales as 1 / tol), each held at its
+    # measured tolerance
+    for N in STATE_DIMS:
+        args = ssm_inputs(*SSM_SHAPES[0], N, torch.float32, "long_memory")
+        want = R.selective_scan_ref(*(t.double() for t in args))
+        for who, got, tol in (("kernel", ops.ssm_scan(*args), F64_KERNEL_TOL),
+                              ("plain", R.selective_scan_ref(*args),
+                               F64_PLAIN_TOL)):
+            read = {}
+            for part, g, w in zip(("y", "h_last"), got, want):
+                err = (g.double() - w).abs()
+                read[part] = (err.max().item(), (err / (
+                    SCAN_TOL + SCAN_TOL * w.abs())).max().item())
+            log(f"  ssm_scan fp32 {who} N={N} long_memory {SSM_SHAPES[0]} "
+                "vs float64: " + ", ".join(
+                    f"{k} max_abs_err {a:.3e}, {r:.3f} x the {SCAN_TOL:g} "
+                    "gate" for k, (a, r) in read.items())
+                + f" (held at {tol:g})")
+            if any(r * SCAN_TOL > tol for _, r in read.values()):
+                fail(f"ssm_scan fp32 {who} N={N} long_memory: outside "
+                     f"rtol = atol = {tol:g} of the float64 scan")
     torch.cuda.synchronize()
     log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
 
@@ -770,12 +812,8 @@ def main() -> int:
                 ssm_scan_cuda, gemm_cuda)
 
     def reset():
-        for c in counters:
-            c.launches = 0
-        flash_attention_cuda.tensor_core_launches = 0
-        decode_attention_cuda.split_launches = 0
-        gemm_cuda.wgmma_launches = 0
-        rwkv6_cuda.tensor_core_launches = 0
+        for fn, name in ops.COUNTERS:
+            setattr(fn, name, 0)
 
     def launches():
         """(flash prefill, flash decode, rwkv6, ssm_scan, gemm) launches
@@ -1173,11 +1211,13 @@ def main() -> int:
     kernels.append(row)
     del args, o, s_last
     # the fp32 route (the recurrence on the CUDA cores) at the same shape,
-    # logged: bound 4 Dk Dv flops a step at the fp32 rate
+    # logged with its plain version's time: bound 4 Dk Dv flops a step at
+    # the fp32 rate
     args = rwkv_inputs(Bw, Hw, Tw, Dw, torch.float32)
     log(f"  rwkv6 fp32 (CUDA cores) [B={Bw} H={Hw} T={Tw} Dk=Dv={Dw}]: "
         f"{time_ms(lambda: rwkv6_cuda(*args)):.4f} ms, bound "
-        f"{bound(4 * Bw * Hw * Tw * Dw * Dw, 0, 4)[0]:.4f} ms (operations)")
+        f"{bound(4 * Bw * Hw * Tw * Dw * Dw, 0, 4)[0]:.4f} ms (operations), "
+        f"plain {time_ms(lambda: R.rwkv6_ref(*args), reps=5):.4f} ms")
     del args
     # K3 at jamba's forward shape: Bt=1, L=2048, Dm=d_inner, N=d_state,
     # bf16, timed as a CUDA graph (an eager call allocates y and h_last and
@@ -1260,13 +1300,15 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
     ``seed``, ``forward`` on 2048 positions (``prefix`` random patch
     embeddings, then tokens) and ``generate`` (batch 4, prompt 16, 24 new),
     each between ``reset()`` and ``launches()``, which must read
-    ``want_fwd`` and ``want_gen(decode steps)``; then ``then(params)`` if
-    given.  Returns the two launch counts; frees the weights."""
+    ``want_fwd`` and ``want_gen(decode steps)``, its tokens those of the
+    eager step (``TF.decode_step``) in the same loop; the captured step
+    beside the eager one (``_step_times``); then ``then(params)`` if given.
+    Returns the two launch counts; frees the weights."""
     import torch
 
     from repro_torch.kernels.flash_attention import decode_attention_cuda
     from repro_torch.models import transformer as TF
-    from repro_torch.serve.engine import generate
+    from repro_torch.serve.engine import build_serve_step, generate
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1329,12 +1371,26 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
                 or out.min() < 0 or out.max() >= cfg.vocab_size:
             fail(f"{cfg.name} generate: wrong shape, prompt not kept or "
                  "token out of range")
-        log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
+        eager = _greedy(lambda p, st, t, pos: TF.decode_step(p, st, t, pos,
+                                                               cfg),
+                        params, TF.init_decode_state(cfg, B, Tp + new,
+                                                     device=dev),
+                        prompts, new)
+        if not torch.equal(out, eager):
+            fail(f"{cfg.name} generate: the captured step's tokens differ "
+                 "from the eager step's")
+        log(f"  generate B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms "
+            f"(its first step eager and captured, then {steps - 1} replays), "
             f"{gen_s * 1e3 / steps:.2f} ms per decode step ({steps} steps; "
             f"weight-read bound {bound(0, weight_bytes, 2)[0]:.2f} ms), "
-            f"{B * new / gen_s:.1f} tok/s, launches {gen_launches}, K2 "
-            f"decode calls over more than one split "
-            f"{decode_attention_cuda.split_launches}")
+            f"{B * new / gen_s:.1f} tok/s, launches {gen_launches} (replays "
+            f"counted), K2 decode calls over more than one split "
+            f"{decode_attention_cuda.split_launches}; tokens == the eager "
+            "step's")
+        _step_times(cfg.name, params, lambda: TF.init_decode_state(
+            cfg, B, Tp + new, device=dev), build_serve_step(cfg),
+            lambda p, st, t, pos: TF.decode_step(p, st, t, pos, cfg),
+            prompts[:, 0], (), reset, launches, want_gen, weight_bytes)
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB")
         if then is not None:
@@ -1347,17 +1403,22 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
 def long_cache_step(cfg, params, dev, gen, *, S: int = 4096, B: int = 4,
                     steps: int = 6) -> dict:
     """Decode steps of ``cfg`` (batch ``B``) over an ``S``-position cache
-    filled with random keys and values, at pos = S - steps - 1 .. S - 1:
-    each step's host-clock ms (synchronised), then one more step under
+    filled with random keys and values, at the last 2 (steps + 2)
+    positions: the eager step (``TF.decode_step``) after a warm-up, each
+    step's host-clock ms (synchronised), then one more step under
     ``torch.profiler``: its device-busy ms (the sum of the kernels'
     durations), the part of it in K2 decode (split and combine kernels),
     the step's ms on the host clock inside the trace, and the K2 decode
     calls (and, where the package counts them, split ones) of the timed
-    steps.  Also used by tools/k2_ab.py on an older tree."""
+    steps.  Then the same for the serve step (``build_serve_step``: its
+    first call captures, ``captured_*`` are its replays), the keys above
+    prefixed ``captured_`` (all but the K2 ones).  Also used by
+    tools/k2_ab.py on an older tree, whose serve step may be eager."""
     import torch
 
     from repro_torch.kernels.flash_attention import decode_attention_cuda
     from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import build_serve_step
 
     with torch.inference_mode():
         state = TF.init_decode_state(cfg, B, S, device=dev)
@@ -1366,7 +1427,8 @@ def long_cache_step(cfg, params, dev, gen, *, S: int = 4096, B: int = 4,
         kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
         tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen,
                             device=dev, dtype=torch.int32)
-        pos = torch.tensor(S - steps - 2, dtype=torch.int32, device=dev)
+        pos = torch.tensor(S - 2 * (steps + 2), dtype=torch.int32,
+                           device=dev)
         TF.decode_step(params, state, tok, pos, cfg)   # warm-up
         pos += 1
         torch.cuda.synchronize()
@@ -1383,23 +1445,49 @@ def long_cache_step(cfg, params, dev, gen, *, S: int = 4096, B: int = 4,
         split = (None if before[1] is None
                  else decode_attention_cuda.split_launches - before[1])
         finite = bool(torch.isfinite(logits).all())
-        act = torch.profiler.ProfilerActivity
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        traced_ms, dev_events = _traced(
+            lambda: TF.decode_step(params, state, tok, pos, cfg))
+        pos += 1
+        step = build_serve_step(cfg)
+        step(params, state, tok, pos)                   # captures
+        pos += 1
+        cap_ms = []
+        for _ in range(steps):
             t0 = time.perf_counter()
-            TF.decode_step(params, state, tok, pos, cfg)
+            logits, state = step(params, state, tok, pos)
             torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in dev_events) / 1e3
+            cap_ms.append((time.perf_counter() - t0) * 1e3)
+            pos += 1
+        finite = finite and bool(torch.isfinite(logits).all())
+        cap_traced_ms, cap_events = _traced(
+            lambda: step(params, state, tok, pos))
     k2 = sum(e.device_time for e in dev_events
              if "flash_decode" in e.name) / 1e3
-    del state
+    del state, step
     torch.cuda.empty_cache()
     return {"S": S, "B": B, "kv_bytes": kv_bytes, "host_ms": host_ms,
             "traced_ms": traced_ms, "device_events": len(dev_events),
-            "busy_ms": busy, "k2_decode_ms": k2, "decode_calls": calls,
-            "split_calls": split, "logits_finite": finite}
+            "busy_ms": sum(e.device_time for e in dev_events) / 1e3,
+            "k2_decode_ms": k2, "decode_calls": calls,
+            "split_calls": split, "logits_finite": finite,
+            "captured_host_ms": cap_ms, "captured_traced_ms": cap_traced_ms,
+            "captured_device_events": len(cap_events),
+            "captured_busy_ms": sum(e.device_time for e in cap_events) / 1e3}
+
+
+def _traced(fn):
+    """``fn()`` once under ``torch.profiler``, synchronised: its ms on the
+    host clock and the trace's device events (kernels and copies, those a
+    CUDA graph replays too)."""
+    import torch
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    return ms, [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def _long_cache(cfg, params, dev, gen, reset, launches) -> None:
@@ -1412,8 +1500,9 @@ def _long_cache(cfg, params, dev, gen, reset, launches) -> None:
     reset()
     r = long_cache_step(cfg, params, dev, gen)
     steps = len(r["host_ms"])
-    # the timed steps, a warm-up step and the profiled one
-    want = (0, cfg.n_layers * (steps + 2), 0, 0, 0)
+    # the timed steps, a warm-up step and the profiled one, eager and
+    # captured (the capture's own eager call, the replays)
+    want = (0, cfg.n_layers * 2 * (steps + 2), 0, 0, 0)
     if launches() != want or r["decode_calls"] != cfg.n_layers * steps:
         fail(f"long-cache decode launches {launches()}, want {want}")
     if r["split_calls"] != cfg.n_layers * steps or \
@@ -1431,27 +1520,36 @@ def _long_cache(cfg, params, dev, gen, reset, launches) -> None:
         f"{host[len(host) // 2]:.2f}), launches {launches()} (with a "
         f"warm-up and the profiled step), every K2 decode call split "
         f"({decode_attention_cuda.split_launches})")
-    if r["device_events"] == 0:
-        log("  profiler: the trace holds no device event, so device-busy "
+    cap = sorted(r["captured_host_ms"])[len(host) // 2]
+    log(f"  captured step over it: host clock "
+        f"{', '.join(f'{t:.2f}' for t in r['captured_host_ms'])} ms (median "
+        f"{cap:.2f}, {cap / host[len(host) // 2]:.2f}x the eager step's)")
+    if r["device_events"] == 0 or r["captured_device_events"] == 0:
+        log("  profiler: a trace holds no device event, so device-busy "
             "time is not measured")
         return
-    log(f"  profiled step: {r['traced_ms']:.2f} ms on the host clock, "
+    log(f"  profiled eager step: {r['traced_ms']:.2f} ms on the host clock, "
         f"device busy {r['busy_ms']:.3f} ms over {r['device_events']} "
         f"device events (idle {1 - r['busy_ms'] / r['traced_ms']:.1%}), "
         f"K2 decode {r['k2_decode_ms']:.3f} ms "
         f"({r['k2_decode_ms'] / r['busy_ms']:.1%} of busy)")
+    log(f"  profiled replay: {r['captured_traced_ms']:.2f} ms on the host "
+        f"clock under the profiler, device busy {r['captured_busy_ms']:.3f} "
+        f"ms over {r['captured_device_events']} device events; the captured "
+        f"step's median {cap / r['captured_busy_ms']:.2f}x its device-busy "
+        f"time (idle {1 - r['captured_busy_ms'] / cap:.1%})")
 
 
-def _encdec_generate(step, params, state, prompts, enc_out, new: int):
-    """Greedy decoding of an encoder-decoder model through its serve step:
-    the prompt teacher-forced, then ``new`` tokens; ``pos`` lives on the
-    device.  Returns (B, Tp + new) int32 tokens."""
+def _greedy(step, params, state, prompts, new: int, *extra):
+    """``generate``'s loop over ``step(params, state, token, pos,
+    *extra)``: the prompt teacher-forced, then ``new`` greedy tokens;
+    ``pos`` lives on the device.  Returns (B, Tp + new) int32 tokens."""
     import torch
 
     pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
     logits = None
     for t in range(prompts.shape[1]):
-        logits, state = step(params, state, prompts[:, t], pos, enc_out)
+        logits, state = step(params, state, prompts[:, t], pos, *extra)
         pos += 1
     out = [prompts]
     tok = logits.argmax(-1).to(torch.int32)
@@ -1459,10 +1557,57 @@ def _encdec_generate(step, params, state, prompts, enc_out, new: int):
         out.append(tok[:, None])
         if i == new - 1:
             break
-        logits, state = step(params, state, tok, pos, enc_out)
+        logits, state = step(params, state, tok, pos, *extra)
         pos += 1
         tok = logits.argmax(-1).to(torch.int32)
     return torch.cat(out, dim=1)
+
+
+def _step_times(name, params, new_state, step, eager, tok, extra, reset,
+                launches, want, weight_bytes, n: int = 10) -> None:
+    """The captured serve step beside the eager one on a fresh state from
+    ``new_state()`` (batch 4, generate's 40-position cache): ``step``'s
+    first call (eager, then the capture) and two replays, then ``n``
+    replays and ``n`` eager steps, each on the host clock (synchronised);
+    the replays' launches must read ``want(n)``.  Then one replay under
+    ``torch.profiler``: its device-busy ms, and the idle share of a replay
+    (1 - busy / the replays' median; the traced replay's own host clock,
+    which tracing lengthens, is logged too).  Logged beside the
+    weight-read bound."""
+    import torch
+
+    state = new_state()
+    pos = torch.zeros((), dtype=torch.int32, device=tok.device)
+
+    def timed(fn):
+        nonlocal pos
+        t0 = time.perf_counter()
+        fn(params, state, tok, pos, *extra)
+        torch.cuda.synchronize()
+        pos += 1
+        return (time.perf_counter() - t0) * 1e3
+
+    for _ in range(3):
+        timed(step)
+    reset()
+    cap = sorted(timed(step) for _ in range(n))
+    if launches() != want(n):
+        fail(f"{name} {n} replays launched {launches()}, want {want(n)}")
+    eag = sorted(timed(eager) for _ in range(n))
+    traced, events = _traced(lambda: step(params, state, tok, pos, *extra))
+    c, e = cap[n // 2], eag[n // 2]
+    busy = sum(ev.device_time for ev in events) / 1e3
+    log(f"  decode step B={tok.shape[0]}, captured vs eager (medians of {n}, "
+        f"host clock): {c:.3f} ms vs {e:.3f} ms ({c / e:.2f}x; weight-read "
+        f"bound {bound(0, weight_bytes, 2)[0]:.3f} ms), replays' launches "
+        f"{want(n)}; one replay profiled: " + (
+            f"device busy {busy:.3f} ms over {len(events)} device events, "
+            f"idle {1 - busy / c:.1%} of the median replay ({traced:.3f} ms "
+            f"on the host clock under the profiler, idle "
+            f"{1 - busy / traced:.1%})"
+            if events else "no device event in the trace (device-busy time "
+            "not measured)"))
+    del state
 
 
 def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
@@ -1517,16 +1662,16 @@ def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
         enc_ms = (time.perf_counter() - t0) * 1e3
         if launches() != (cfg.n_enc_layers, 0, 0, 0, 0):
             fail(f"{cfg.name} encode launches {launches()}")
-        step = build_serve_step(cfg)
         Tp, new = 16, 24
         prompts = toks[:, :Tp]
-        _encdec_generate(step, params, ED.init_decode_state_encdec(
-            cfg, B, Tp + 2, device=dev), prompts, enc_out, 2)   # warm-up
+        _greedy(build_serve_step(cfg), params, ED.init_decode_state_encdec(
+            cfg, B, Tp + 2, device=dev), prompts, 2, enc_out)   # warm-up
         torch.cuda.synchronize()
+        step = build_serve_step(cfg)
         state = ED.init_decode_state_encdec(cfg, B, Tp + new, device=dev)
         reset()
         t0 = time.perf_counter()
-        out = _encdec_generate(step, params, state, prompts, enc_out, new)
+        out = _greedy(step, params, state, prompts, new, enc_out)
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         steps = Tp + new - 1
@@ -1539,13 +1684,27 @@ def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
             fail(f"{cfg.name} decoding: wrong shape, prompt not kept or "
                  "token out of range")
         log(f"  encode B={B} frames={Te}: {enc_ms:.1f} ms; serve steps "
-            f"B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms, "
+            f"B={B} prompt={Tp} new={new}: {gen_s * 1e3:.1f} ms (the first "
+            f"step eager and captured, then {steps - 1} replays), "
             f"{gen_s * 1e3 / steps:.2f} ms per step ({steps} steps), "
-            f"{B * new / gen_s:.1f} tok/s, launches {launches()} "
-            f"({on_tensor_cores(L * steps)})")
+            f"{B * new / gen_s:.1f} tok/s, launches {launches()} (replays "
+            f"counted; {on_tensor_cores(L * steps)})")
+        eager = lambda p, st, t, pos, e: ED.decode_step_encdec(p, st, t, pos,
+                                                               e, cfg)
+        want = _greedy(eager, params, ED.init_decode_state_encdec(
+            cfg, B, Tp + new, device=dev), prompts, new, enc_out)
+        if not torch.equal(out, want):
+            fail(f"{cfg.name} decoding: the captured step's tokens differ "
+                 "from the eager step's")
+        log("  tokens == the eager step's (ED.decode_step_encdec)")
+        weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        _step_times(cfg.name, params, lambda: ED.init_decode_state_encdec(
+            cfg, B, Tp + new, device=dev), build_serve_step(cfg), eager,
+            prompts[:, 0], (enc_out,), reset, launches,
+            lambda n: (L * n, L * n, 0, 0, 0), weight_bytes)
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB")
-    del params, enc_out, state
+    del params, enc_out, state, step
     torch.cuda.empty_cache()
 
 

@@ -27,7 +27,33 @@ from .rwkv6 import rwkv6_cuda
 from .ssm_scan import ssm_scan_cuda
 
 __all__ = ["gemm", "flash_attention", "decode_attention", "ssm_scan",
-           "rwkv6"]
+           "rwkv6", "launch_counts", "add_launch_counts"]
+
+# every launch counter of the wrappers, (wrapper, attribute): a CUDA graph
+# replays launches without calling a wrapper, so the captured serve step
+# (serve.engine) adds what its capture counted on each replay
+COUNTERS = ((flash_attention_cuda, "launches"),
+            (flash_attention_cuda, "tensor_core_launches"),
+            (decode_attention_cuda, "launches"),
+            (decode_attention_cuda, "split_launches"),
+            (gemm_cuda, "launches"), (gemm_cuda, "wgmma_launches"),
+            (rwkv6_cuda, "launches"), (rwkv6_cuda, "tensor_core_launches"),
+            (ssm_scan_cuda, "launches"))
+
+
+def launch_counts() -> tuple[int, ...]:
+    """The counters of :data:`COUNTERS`, in order."""
+    return tuple(getattr(fn, name) for fn, name in COUNTERS)
+
+
+def add_launch_counts(counts) -> None:
+    """Adds ``counts`` (one int per counter of :data:`COUNTERS`, negative to
+    take back what a capture counted) to the counters."""
+    if len(counts) != len(COUNTERS):
+        raise ValueError(f"{len(counts)} counts for {len(COUNTERS)} "
+                         "counters")
+    for (fn, name), n in zip(COUNTERS, counts):
+        setattr(fn, name, getattr(fn, name) + n)
 
 
 def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

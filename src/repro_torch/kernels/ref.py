@@ -374,20 +374,22 @@ def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
     D_skip (Dm,).  One loop over L that holds only h, where the reference
     runs an associative scan over (Bt, L, Dm, N) tensors (at Jamba's width
     four of 2.1 GB each).  Returns (y (Bt, L, Dm) in x.dtype, h_last
-    (Bt, Dm, N) fp32)."""
+    (Bt, Dm, N) fp32).  Given float64 x, it runs in float64 throughout and
+    returns float64 y and h_last: the arbiter that the fp32 kernel and
+    this scan in fp32 are both held to over a long memory."""
     Bt, L, Dm = x.shape
-    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
-    Af = A.float()
-    h = (torch.zeros((Bt, Dm, A.shape[1]), dtype=torch.float32,
-                     device=x.device) if h0 is None else h0.float())
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Bf, Cf, Af = (t.to(acc) for t in (x, dt, B, C, A))
+    h = (torch.zeros((Bt, Dm, A.shape[1]), dtype=acc, device=x.device)
+         if h0 is None else h0.to(acc))
     ys = []
     for l in range(L):
         h = (torch.exp(dtf[:, l, :, None] * Af) * h
              + (dtf[:, l] * xf[:, l])[:, :, None] * Bf[:, l, None, :])
         ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, l]))
     y = (torch.stack(ys, dim=1) if ys else
-         torch.zeros((Bt, 0, Dm), dtype=torch.float32, device=x.device))
-    return (y + xf * D_skip.float()).to(x.dtype), h
+         torch.zeros((Bt, 0, Dm), dtype=acc, device=x.device))
+    return (y + xf * D_skip.to(acc)).to(x.dtype), h
 
 
 def _row_rel_err(got, want) -> float:

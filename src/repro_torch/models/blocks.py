@@ -250,7 +250,8 @@ def _moe_local(cfg: ModelConfig, p, ht):
 
     # load-balancing aux loss (Switch-style)
     flat_e = eids.reshape(-1)                                  # (n_tok·k,)
-    onehot = F.one_hot(flat_e, E)
+    # not F.one_hot, which on the CPU reads the ids' range on the host
+    onehot = (flat_e[:, None] == torch.arange(E, device=ht.device)).long()
     ce = onehot.sum(0).float() / (n_tok * k)
     aux = cfg.router_aux_coef * E * torch.sum(probs.mean(dim=0) * ce)
 

@@ -13,6 +13,7 @@ leaf by leaf.  The period loop is a Python loop (PyTorch runs eagerly).
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -90,12 +91,31 @@ def _block_init(cfg: ModelConfig, spec, generator, device, lead) -> dict:
 # forward (full sequence)
 # ---------------------------------------------------------------------------
 
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (to nearest even, through fp32 as
+    ``torch.tensor(v, dtype=dtype)`` rounds it), as a Python float: a
+    scalar the host holds, where a tensor made from it would be copied to
+    the card on every call."""
+    if dtype == torch.float64:
+        return v
+    bits = struct.unpack("<I", struct.pack("<f", v))[0]
+    if dtype == torch.bfloat16:
+        bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    v = struct.unpack("<f", struct.pack("<I", bits))[0]
+    if dtype == torch.float16:
+        return struct.unpack("<e", struct.pack("<e", v))[0]
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"no rounding to {dtype}")
+    return v
+
+
 def _embed(params, tokens, cfg: ModelConfig):
     x = params["embed"]["table"][tokens.long()].to(cfg.torch_dtype)
     if cfg.scale_embeddings:
-        # the factor is rounded to the model dtype first, as the reference does
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.torch_dtype,
-                             device=x.device)
+        # the factor rounded to the model dtype first, as the reference
+        # does; x times a model-dtype scalar rounds once from the exact
+        # product, as the reference's product of two model-dtype arrays
+        x = x * _rounded(math.sqrt(cfg.d_model), cfg.torch_dtype)
     return x
 
 

@@ -2,22 +2,32 @@
 (``repro.serve.engine``'s counterpart with ``mesh=None``; the port has no
 sharding yet).
 
+The reference compiles its step once, ``jax.jit(step,
+donate_argnums=(1,))``, and dispatches a whole step at a time.  Here, on a
+card, :func:`build_serve_step` captures one decode step in a CUDA graph and
+replays it, so the host issues one graph a step instead of every operation
+of every layer; the graph writes the caller's state in place, the port's
+counterpart of donating it.  On the CPU the step stays eager, chosen by the
+token's device alone.
+
 The decode position lives in a 0-d int32 tensor on the device and is
-advanced there, so the decode kernels read it without the host waiting on
+advanced there, so neither the kernels nor the graph make the host wait on
 the device between steps.
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import torch
 
+from ..kernels import ops
 from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig
 
-__all__ = ["ServeConfig", "build_serve_step", "generate"]
+__all__ = ["ServeConfig", "CapturedStep", "build_serve_step", "generate"]
 
 
 @dataclass(frozen=True)
@@ -27,11 +37,116 @@ class ServeConfig:
     temperature: float = 0.0
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _spec(t) -> tuple:
+    """What a copy into a static buffer needs to be the same."""
+    if isinstance(t, torch.Tensor):
+        return (t.shape, t.dtype, t.device)
+    return (type(t),)
+
+
+class CapturedStep:
+    """``step(params, state, token, pos[, enc_out])`` → (logits, state),
+    captured in a CUDA graph on a card and replayed.
+
+    - A CPU token runs the eager step, as every op there does.
+    - On a card, the first call (and any call whose params or state leaves
+      are not the tensors captured, or whose inputs differ in shape, dtype
+      or device) runs the eager step on a side stream for its own result
+      (building the kernels, loading their libraries and cuBLAS's handles)
+      and then captures one step in a new graph, dropping the old one.  The
+      graph reads the params and reads and writes the state's leaves where
+      they lie; ``token`` (B,), ``pos`` (0-d int32, or an int) and
+      ``enc_out`` are copied into static buffers that it reads.
+    - Later calls copy the inputs into those buffers, replay the graph and
+      return a clone of its logits (a tensor of the caller's, not the
+      buffer the next replay overwrites) and the state.
+    - The launch counters of :mod:`repro_torch.kernels.ops` count replays:
+      what the capture counted is taken back and added on each replay.
+
+    A capture or replay that fails raises; nothing falls back to eager.
+    ``captures`` and ``replays`` count both."""
+
+    def __init__(self, eager):
+        self._eager = eager
+        self._graph = None
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, params, state, token, pos, *extra):
+        if token.device.type == "cpu":
+            return self._eager(params, state, token, pos, *extra)
+        bound = list(_leaves(params)) + list(_leaves(state))
+        inputs = tuple(_spec(t) for t in (token, pos, *extra))
+        if not self._holds(bound, inputs):
+            return self._capture(params, state, token, pos, extra, bound,
+                                 inputs)
+        for static, new in zip(self._static, (token, pos, *extra)):
+            if isinstance(new, torch.Tensor):
+                static.copy_(new)
+            else:
+                static.fill_(new)
+        self._graph.replay()
+        ops.add_launch_counts(self._launches)
+        self.replays += 1
+        return self._logits.clone(), state
+
+    def _holds(self, bound, inputs) -> bool:
+        """Whether the graph was captured over these very tensors, where
+        they lie now, and inputs of these shapes."""
+        if self._graph is None or inputs != self._inputs \
+                or len(bound) != len(self._bound):
+            return False
+        return all(ref() is t and lay == (t.data_ptr(), t.shape, t.stride(),
+                                          t.dtype)
+                   for (ref, lay), t in zip(self._bound, bound))
+
+    def _capture(self, params, state, token, pos, extra, bound, inputs):
+        dev = token.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            logits, state = self._eager(params, state, token, pos, *extra)
+        cur.wait_stream(side)
+        logits.record_stream(cur)
+
+        self._graph = self._logits = self._static = None
+        static = [torch.empty_like(token,
+                                   memory_format=torch.contiguous_format),
+                  torch.empty_like(pos) if isinstance(pos, torch.Tensor)
+                  else torch.zeros((), dtype=torch.int32, device=dev),
+                  *(torch.empty_like(e) for e in extra)]
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph):
+            out, _ = self._eager(params, state, *static)
+        launches = tuple(a - b for a, b in zip(ops.launch_counts(), before))
+        ops.add_launch_counts([-n for n in launches])
+
+        self._graph, self._logits, self._static = graph, out, static
+        self._launches, self._inputs = launches, inputs
+        self._bound = [(weakref.ref(t), (t.data_ptr(), t.shape, t.stride(),
+                                         t.dtype)) for t in bound]
+        self.captures += 1
+        return logits, state
+
+
 def build_serve_step(cfg: ModelConfig, backend: str = "kernel"):
     """Returns the one-token step → (next-token logits, state):
     ``step(params, state, token, pos)`` for a decoder LM (the step of
     :func:`generate`), ``step(params, state, token, pos, enc_out)`` for an
-    encoder-decoder model, ``enc_out`` from ``encdec.encode``."""
+    encoder-decoder model, ``enc_out`` from ``encdec.encode``.  A
+    :class:`CapturedStep`: replayed from a CUDA graph on a card, eager on
+    the CPU; the state is updated in place, and the logits returned are
+    the caller's to keep."""
 
     if cfg.is_encoder_decoder:
         def step(params, state, token, pos, enc_out):
@@ -41,13 +156,16 @@ def build_serve_step(cfg: ModelConfig, backend: str = "kernel"):
         def step(params, state, token, pos):
             return TF.decode_step(params, state, token, pos, cfg, backend)
 
-    return step
+    return CapturedStep(step)
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
              backend: str = "kernel") -> torch.Tensor:
     """Greedy batched generation (decoder-only models).
-    prompts (B, Tp) int32 → (B, Tp + max_new), on the prompts' device."""
+    prompts (B, Tp) int32 → (B, Tp + max_new), on the prompts' device.
+    Every step, the teacher-forced prompt's and the new tokens', goes
+    through one :func:`build_serve_step` step: on a card its first call
+    runs eagerly and captures the graph, the others replay it."""
     if cfg.is_encoder_decoder:
         raise ValueError(f"generate serves decoder-only models; drive "
                          f"{cfg.name} through build_serve_step with the "

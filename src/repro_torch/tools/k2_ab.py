@@ -21,7 +21,9 @@ line:
   * ``long_cache``: Mistral-NeMo's decode step at batch 4 over a
     4096-position cache (``chip_smoke.long_cache_step``): host-clock ms of
     each of 12 steps, and one profiled step's device-busy ms and K2
-    decode ms.
+    decode ms; the same two for the serve step (``captured_host_ms``,
+    ``captured_busy_ms``: replays of a CUDA graph where the tree's
+    ``build_serve_step`` captures, eager steps where it does not).
 
 Run it as parent, change, change, parent.
 """
@@ -124,7 +126,8 @@ def main(argv=None) -> int:
             r = long_cache_step(cfg, params, dev, gen, steps=12)
             out["long_cache"] = {key: r[key] for key in (
                 "S", "B", "host_ms", "traced_ms", "busy_ms", "k2_decode_ms",
-                "device_events", "decode_calls", "split_calls")}
+                "device_events", "decode_calls", "split_calls",
+                "captured_host_ms", "captured_busy_ms")}
         del params
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)

@@ -58,7 +58,7 @@ VARIANTS = {
     "sound": (),
     "decay_late": (("torch.exp(dtf[:, l, :, None] * Af)",
                     "torch.exp(dtf[:, max(l - 1, 0), :, None] * Af)"),),
-    "skip_dropped": (("(y + xf * D_skip.float())", "(y + 0.0 * xf)"),),
+    "skip_dropped": (("(y + xf * D_skip.to(acc))", "(y + 0.0 * xf)"),),
     "lane_lost": (('torch.einsum("bdn,bn->bd", h, Cf[:, l])',
                    'torch.einsum("bdn,bn->bd", h[..., :-4], '
                    'Cf[:, l, :-4])'),),

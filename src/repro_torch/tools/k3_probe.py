@@ -2,7 +2,7 @@
 each timed at the main shape beside its SASS instruction mix.
 
     python src/repro_torch/tools/k3_probe.py --src DIR --label NAME \\
-        [--variants base,ftz,...] [--decay long_memory]
+        [--variants base,ftz,...] [--decay long_memory] [--dtype fp32]
 
 DIR is the directory holding the tree's ``repro_torch`` (a parent commit
 unpacked with ``git archive``, or ``src``).  Each variant is the tree's
@@ -12,12 +12,16 @@ variant whose anchors the source lacks is skipped).  All variants are
 compiled at once with the tree's ``nvcc`` flags into
 ``.chipscratch/k3_probe/<label>/<variant>/``, and each is loaded in place of
 the tree's library and called through the tree's ``ssm_scan_cuda`` at
-Bt = 1, L = 2048, Dm = 16384, N = 16 in bf16 (inputs drawn as
-``chip_smoke.py`` draws them, or with ``--decay long_memory`` |A| from 1e-3
-to 5e-2).  Per variant one JSON line: the states a thread the tree builds
-at N = 16 (``autotile.SSM_TILES``; none before the redesign), ms as a CUDA
-graph (``chip_smoke.time_ms``), the largest error of y and h_last against the
-plain version (a variant that removes work is a timing only), ptxas's
+Bt = 1, L = 2048, Dm = 16384, N = 16 in bf16 or, with ``--dtype fp32``,
+fp32 (inputs drawn as ``chip_smoke.py`` draws them, or with ``--decay
+long_memory`` |A| from 1e-3 to 5e-2).  Per variant one JSON line: the
+states a thread the tree builds at N = 16 (``autotile.SSM_TILES``; none
+before the redesign), ms as a CUDA graph (``chip_smoke.time_ms``), the
+largest error of y and h_last against the plain version (a variant that
+removes work is a timing only) and, over a long memory, against the scan
+in float64 (the tree's ``ref.selective_scan_ref`` on float64 inputs, where
+it runs in float64; ``f64_y`` and ``f64_h`` are [max |got - want|, max
+|got - want| / (1e-4 + 1e-4 |want|)]), ptxas's
 registers and spill bytes, and the opcode counts of the kernel that ran
 (``cuobjdump -sass``; with ``--sass-dir`` its text too).  The card's name,
 power limit and SM clock are printed first.
@@ -57,6 +61,28 @@ _EX2_POLY = (
     "  p = fmaf(p, f, 1.0f);\n"
     "  return __int_as_float(__float_as_int(p) + (__float_as_int(r) << 23));\n"
     "}\n")
+# e^v on the FMA pipe (for the fp32 route): v = k ln 2 + r, k = rint(v
+# log2 e), r by Cody and Waite's two-part ln 2; e^r - 1 = r + r^2 P(r), P
+# Taylor's terms 1/2! .. 1/8!; e^r = 1 + (e^r - 1) rounded once, scaled by
+# 2^k; 0 below 2^-126.  Within 1 ulp and without bias near 1
+# (tests/test_torch_kernels.py models it from this text); ~19 instructions
+_EXP_FMA = (
+    "__device__ __forceinline__ float exp_fma(float v) {\n"
+    "  v = fminf(fmaxf(v, -104.f), 88.f);\n"
+    "  const float k = rintf(v * 1.44269504f);\n"
+    "  float r = fmaf(k, -0.693145751953125f, v);\n"
+    "  r = fmaf(k, -1.42860677e-06f, r);\n"
+    "  float p = 2.48015873e-05f;\n"
+    "  p = fmaf(p, r, 1.98412698e-04f);\n"
+    "  p = fmaf(p, r, 1.38888889e-03f);\n"
+    "  p = fmaf(p, r, 8.33333333e-03f);\n"
+    "  p = fmaf(p, r, 4.16666667e-02f);\n"
+    "  p = fmaf(p, r, 1.66666667e-01f);\n"
+    "  p = fmaf(p, r, 0.5f);\n"
+    "  const float e = 1.f + fmaf(p * r, r, r);\n"
+    "  return e * __int_as_float(max(static_cast<int>(k) + 127, 0) << 23);\n"
+    "}\n")
+_FP32 = "std::is_same<T, float>::value"
 _TO_F = "__device__ __forceinline__ float to_f(float v) { return v; }"
 _FIRST = "q.e[4 * i] = ex2(dv * a[4 * i]);"
 # variant: (anchor, replacement) pairs, each anchor replaced wherever it
@@ -120,6 +146,16 @@ VARIANTS = {
     # (ex2_poly)
     "poly4": ((_TO_F, _EX2_POLY + _TO_F),
               (_FIRST, "q.e[4 * i] = ex2_poly(dv * a[4 * i]);")),
+    # fp32 decays from exp_fma (e^v of the unscaled dt * A), bf16's
+    # unchanged
+    "exp_fma": ((_TO_F, _EXP_FMA + _TO_F),
+                ("A[static_cast<int64_t>(d) * N + p * S + i] * LOG2E",
+                 f"A[static_cast<int64_t>(d) * N + p * S + i] * ({_FP32} "
+                 "? 1.f : LOG2E)"),
+                *((f"q.e[4 * i{k}] = ex2(dv * a[4 * i{k}]);",
+                   f"q.e[4 * i{k}] = {_FP32} ? exp_fma(dv * a[4 * i{k}]) "
+                   f": ex2(dv * a[4 * i{k}]);")
+                  for k in ("", " + 1", " + 2", " + 3"))),
     "poly8": ((_TO_F, _EX2_POLY + _TO_F),
               (_FIRST, "q.e[4 * i] = i % 2 ? ex2(dv * a[4 * i]) : "
                        "ex2_poly(dv * a[4 * i]);")),
@@ -138,13 +174,20 @@ def variant_source(text: str, variant: str) -> str | None:
     return text
 
 
-def sass_mix(cuobjdump: str, lib: Path, states: int | None) -> tuple:
-    """Opcode counts (without modifiers) of the bf16, N = 16 kernel in
-    ``lib`` that the call runs (``states`` a thread, the 16-byte-load one),
-    and its SASS text."""
+def _kernel_tag(states: int | None, fp32: bool) -> str:
+    """The mangled template arguments of the N = 16 kernel the call runs
+    (``states`` a thread, the 16-byte-load one)."""
+    return (("fLi16E" if fp32 else "13__nv_bfloat16Li16E")
+            + (f"Li{states}ELb1E" if states else "E"))
+
+
+def sass_mix(cuobjdump: str, lib: Path, states: int | None,
+             fp32: bool = False) -> tuple:
+    """Opcode counts (without modifiers) of the N = 16 kernel in ``lib``
+    that the call runs, and its SASS text."""
     out = subprocess.run([cuobjdump, "-sass", str(lib)],
                          capture_output=True, text=True, check=True).stdout
-    want = ("13__nv_bfloat16Li16E" + (f"Li{states}ELb1E" if states else "E"))
+    want = _kernel_tag(states, fp32)
     counts, name, text = collections.Counter(), None, []
     for line in out.splitlines():
         if "Function :" in line:
@@ -158,9 +201,9 @@ def sass_mix(cuobjdump: str, lib: Path, states: int | None) -> tuple:
     return dict(counts.most_common()), "\n".join(text)
 
 
-def ptxas_info(log: str, states: int | None) -> dict:
+def ptxas_info(log: str, states: int | None, fp32: bool = False) -> dict:
     """Registers and spill bytes ptxas reported for the same kernel."""
-    want = ("13__nv_bfloat16Li16E" + (f"Li{states}ELb1E" if states else "E"))
+    want = _kernel_tag(states, fp32)
     name, info = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -184,6 +227,7 @@ def main(argv=None) -> int:
                     choices=("softplus", "long_memory"),
                     help="long_memory: |A| log-uniform in [1e-3, 5e-2], "
                     "decays within ~1e-3 of 1 for most steps")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "fp32"))
     ap.add_argument("--sass-dir", type=Path,
                     help="also write each run kernel's SASS here")
     args = ap.parse_args(argv)
@@ -238,7 +282,9 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(dev).manual_seed(0)
-    Bt, L, Dm, N, bf = 1, 2048, 16384, 16, torch.bfloat16
+    fp32 = args.dtype == "fp32"
+    Bt, L, Dm, N = 1, 2048, 16384, 16
+    bf = torch.float32 if fp32 else torch.bfloat16
     rand = lambda *s: torch.randn(s, generator=gen, device=dev)
     x = rand(Bt, L, Dm).to(bf)
     dt = torch.nn.functional.softplus(rand(Bt, L, Dm) - 1.0).to(bf)
@@ -248,6 +294,12 @@ def main(argv=None) -> int:
     B, C = rand(Bt, L, N).to(bf), rand(Bt, L, N).to(bf)
     D = torch.full((Dm,), 0.5, device=dev)
     y_ref, h_ref = R.selective_scan_ref(x, dt, A, B, C, D)
+    y64 = h64 = None
+    if args.decay == "long_memory":
+        y64, h64 = R.selective_scan_ref(*(t.double() for t in
+                                          (x, dt, A, B, C, D)))
+        if h64.dtype != torch.float64:   # a tree without the float64 scan
+            y64 = h64 = None
     S = dict(getattr(autotile, "SSM_TILES", ())).get(N)
     call = lambda: K3.ssm_scan_cuda(x, dt, A, B, C, D)
     for v, p in procs.items():
@@ -259,17 +311,23 @@ def main(argv=None) -> int:
             getattr(lib, sym).argtypes = argtypes
         _build._LOADED["ssm_scan"] = lib
         y, h = call()
-        mix, sass = sass_mix(cuobjdump, out_dir / v / "lib.so", S)
+        mix, sass = sass_mix(cuobjdump, out_dir / v / "lib.so", S, fp32)
         if args.sass_dir:
             args.sass_dir.mkdir(parents=True, exist_ok=True)
             (args.sass_dir / f"{args.label}-{v}.sass").write_text(sass)
         row = {"label": args.label, "variant": v, "states": S,
-               "decay": args.decay, "timing_only": v in TIMING_ONLY,
+               "decay": args.decay, "dtype": args.dtype,
+               "timing_only": v in TIMING_ONLY,
                "graph_ms": time_ms(call, graph=True),
                "y_max_abs_err": (y.float() - y_ref.float()).abs().max().item(),
                "h_last_max_abs_err": (h - h_ref).abs().max().item(),
-               **ptxas_info(logs[v], S),
+               **ptxas_info(logs[v], S, fp32),
                "sass": mix}
+        for name, got, want in (("f64_y", y, y64), ("f64_h", h, h64)):
+            if want is not None:
+                err = (got.double() - want).abs()
+                row[name] = [err.max().item(),
+                             (err / (1e-4 + 1e-4 * want.abs())).max().item()]
         if v.startswith("clock"):
             row["cycles"] = dict(zip(("full_wait", "consumer"),
                                      h[0, 0, :2].tolist()))

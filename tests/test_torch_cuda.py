@@ -51,6 +51,9 @@ SSM_DECAYS = ("softplus", "zero", "underflow", "mixed", "long_memory")
 # the rms of want's row (ref.state_rel_err, ref.scan_rel_err), as
 # chip_smoke.py's SCAN_ROW_TOL
 SCAN_ROW_TOL = 2.0 ** -10
+# the fp32 kernel and the fp32 plain scan over a long memory against the
+# scan in float64, rtol = atol, as chip_smoke.py holds them
+F64_KERNEL_TOL, F64_PLAIN_TOL = 1e-3, 2e-3
 
 
 @pytest.fixture
@@ -644,6 +647,25 @@ def test_ssm_scan_kernel_matches_plain(card, dtype, N, Bt, L, Dm, decay):
     assert R.state_rel_err(h, *args) <= SCAN_ROW_TOL
 
 
+@pytest.mark.parametrize("N", STATE_DIMS)
+def test_ssm_scan_fp32_long_memory_holds_to_float64(card, N):
+    """The fp32 route over a long memory at the main shape against
+    selective_scan_ref run in float64 on the same inputs, the arbiter of
+    the kernel and of the fp32 plain scan.  Neither holds to the fp32
+    scans' 1e-4 there (the kernel's ex2.approx and the card's expf round
+    decays near 1 with a bias that compounds over h's memory, and y sums
+    N states of h): each is held at the tolerance measured, rtol = atol =
+    F64_KERNEL_TOL and F64_PLAIN_TOL (chip_smoke.py's)."""
+    gen = torch.Generator(card).manual_seed(7)
+    args = _ssm_inputs(gen, 1, 2048, 16384, N, torch.float32, card,
+                       "long_memory")
+    y64, h64 = R.selective_scan_ref(*(t.double() for t in args))
+    for (y, h), tol in ((ops.ssm_scan(*args), F64_KERNEL_TOL),
+                        (R.selective_scan_ref(*args), F64_PLAIN_TOL)):
+        torch.testing.assert_close(y.double(), y64, rtol=tol, atol=tol)
+        torch.testing.assert_close(h.double(), h64, rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssm_scan_misaligned_operands(card, dtype):
     """x, dt, B and C one element past a 16-byte boundary, through
@@ -751,3 +773,146 @@ def test_encdec_kernel_path_matches_plain_path(card):
         lt, state = step(params, state, toks[:, t], pos, enc)
         pos += 1
         _assert_close(lt, fwd[:, t], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the serve step captured in a CUDA graph and replayed (serve.engine)
+# ---------------------------------------------------------------------------
+
+def _greedy(step, params, state, prompts, new, *extra):
+    """generate's loop over ``step``: the prompt teacher-forced, then
+    ``new`` greedy tokens; pos a 0-d int32 tensor advanced in place."""
+    pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
+    logits = None
+    for t in range(prompts.shape[1]):
+        logits, state = step(params, state, prompts[:, t], pos, *extra)
+        pos += 1
+    out = [prompts]
+    tok = logits.argmax(-1).to(torch.int32)
+    for i in range(new):
+        out.append(tok[:, None])
+        if i == new - 1:
+            break
+        logits, state = step(params, state, tok, pos, *extra)
+        pos += 1
+        tok = logits.argmax(-1).to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+def _same_state(a, b):
+    for key in a:
+        if isinstance(a[key], dict):
+            _same_state(a[key], b[key])
+        else:
+            assert torch.equal(a[key], b[key]), key
+
+
+@pytest.mark.parametrize("arch", [a for a in PORTED_IDS if a != "whisper_base"])
+def test_captured_serve_step_gives_the_eager_tokens_and_state(card, arch):
+    """Smoke width in the config's dtype: the captured step (one eager call
+    that captures, then replays) and decode_step itself give the same
+    tokens and every state leaf bit for bit (the kernels and cuBLAS are
+    deterministic and replay the eager calls' own work); generate gives
+    those tokens too; the launch counters count each replay."""
+    cfg = get_config(arch, reduced=True)
+    params = TF.init_params(cfg, torch.Generator(card).manual_seed(2), card)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 6), device=card,
+                            dtype=torch.int32,
+                            generator=torch.Generator(card).manual_seed(3))
+    new = 5
+    eager_state = TF.init_decode_state(cfg, 3, 11, device=card)
+    want = _greedy(lambda p, s, t, pos: TF.decode_step(p, s, t, pos, cfg),
+                   params, eager_state, prompts, new)
+    step = build_serve_step(cfg)
+    state = TF.init_decode_state(cfg, 3, 11, device=card)
+    n_attn = cfg.n_periods * sum(s.kind == "attn" for s in cfg.layer_pattern)
+    before = decode_attention_cuda.launches
+    got = _greedy(step, params, state, prompts, new)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _same_state(state, eager_state)
+    assert step.captures == 1 and step.replays == 6 + new - 2
+    assert decode_attention_cuda.launches - before == n_attn * (6 + new - 1)
+    assert torch.equal(generate(params, cfg, prompts, new), want)
+
+
+def test_captured_encdec_step_gives_the_eager_tokens_and_cache(card):
+    """Whisper smoke in bf16: the serve-step loop (the cross-attention's
+    K2 prefill over the encoder's output, the self-attention's K2 decode)
+    captured and replayed gives decode_step_encdec's tokens and caches bit
+    for bit, enc_out copied into the graph's buffer each step."""
+    cfg = get_config("whisper_base", reduced=True)
+    params = ED.init_params_encdec(cfg, torch.Generator(card).manual_seed(2),
+                                   card)
+    gen = torch.Generator(card).manual_seed(3)
+    enc = ED.encode(params, _rand(gen, (2, 29, cfg.d_model), cfg.torch_dtype,
+                                  card), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 4), device=card,
+                            dtype=torch.int32, generator=gen)
+    eager_state = ED.init_decode_state_encdec(cfg, 2, 10, device=card)
+    want = _greedy(lambda p, s, t, pos, e: ED.decode_step_encdec(
+        p, s, t, pos, e, cfg), params, eager_state, prompts, 6, enc)
+    step = build_serve_step(cfg)
+    state = ED.init_decode_state_encdec(cfg, 2, 10, device=card)
+    before = (flash_attention_cuda.launches, decode_attention_cuda.launches)
+    got = _greedy(step, params, state, prompts, 6, enc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _same_state(state, eager_state)
+    assert step.captures == 1 and step.replays == 8
+    steps = 4 + 6 - 1
+    assert (flash_attention_cuda.launches - before[0],
+            decode_attention_cuda.launches - before[1]) == \
+        (cfg.n_layers * steps, cfg.n_layers * steps)
+
+
+def test_captured_step_recaptures_for_a_fresh_state(card):
+    """The step called with another state (a second generate's) captures
+    anew over it: its result is the eager step's on that state, and the
+    first state, which the old graph wrote, is left as it was."""
+    cfg = get_config("jamba_1_5_large_398b", reduced=True)
+    params = TF.init_params(cfg, torch.Generator(card).manual_seed(4), card)
+    tok = torch.tensor([3, 8], dtype=torch.int32, device=card)
+    step = build_serve_step(cfg)
+    first = TF.init_decode_state(cfg, 2, 6, device=card)
+    pos = torch.zeros((), dtype=torch.int32, device=card)
+    for _ in range(3):
+        step(params, first, tok, pos)
+        pos += 1
+    assert step.captures == 1 and step.replays == 2
+    kept = {k: {n: t.clone() for n, t in v.items()} for k, v in first.items()}
+    fresh = TF.init_decode_state(cfg, 2, 6, device=card)
+    eager = TF.init_decode_state(cfg, 2, 6, device=card)
+    pos.zero_()
+    for _ in range(3):
+        got, fresh = step(params, fresh, tok, pos)
+        want, eager = TF.decode_step(params, eager, tok, pos, cfg)
+        assert torch.equal(got, want)
+        pos += 1
+    assert step.captures == 2 and step.replays == 4
+    _same_state(fresh, eager)
+    _same_state(first, kept)
+
+
+def test_captured_step_logits_are_the_callers(card):
+    """The logits a replay returns are a clone: a later replay leaves them
+    as they were, and two steps' logits share no storage."""
+    cfg = get_config("mistral_nemo_12b", reduced=True)
+    params = TF.init_params(cfg, torch.Generator(card).manual_seed(5), card)
+    step = build_serve_step(cfg)
+    state = TF.init_decode_state(cfg, 2, 5, device=card)
+    toks = torch.tensor([[1, 2], [7, 3], [5, 9], [4, 6]], dtype=torch.int32,
+                        device=card)
+    pos = torch.zeros((), dtype=torch.int32, device=card)
+    outs = []
+    for tok in toks:
+        logits, state = step(params, state, tok, pos)
+        outs.append((logits, logits.clone()))
+        pos += 1
+    torch.cuda.synchronize()
+    assert step.replays == 3
+    for logits, copy in outs:
+        assert torch.equal(logits, copy)
+    ptrs = {logits.data_ptr() for logits, _ in outs}
+    assert len(ptrs) == 4
+    assert not torch.equal(outs[1][0], outs[2][0])

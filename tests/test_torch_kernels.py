@@ -1146,6 +1146,95 @@ def test_state_row_gate_admits_the_exps_rounding_not_h_in_bf16():
     assert TR.state_rel_err(h_bf16, x, dt, A, B, C, D) > 4 * SCAN_ROW_TOL
 
 
+def _exp_fma_model(v):
+    """``exp_fma``, the exp on the FMA pipe that tools/k3_probe.py's
+    ``exp_fma`` variant gives K3's fp32 route, in numpy, its constants read
+    from the variant's text in order: the clamp, log2(e), the two parts of
+    -ln 2, P's seven coefficients and the 1 of e^r = 1 + q.  Each fp32
+    product and sum rounds as on the card; an fmaf is its exact value
+    (float64 holds an fp32 product exactly) rounded once."""
+    import re
+
+    from repro_torch.tools import k3_probe
+    c = [np.float32(t[:-1]) for t in
+         re.findall(r"-?\d+\.\d*(?:e[-+]?\d+)?f", k3_probe._EXP_FMA)]
+    assert len(c) == 13, c
+    lo, hi, log2e, ln2_hi, ln2_lo, *P, one = c
+    f32 = np.float32
+
+    def fma(a, b, x):
+        return (a.astype(np.float64) * b + x).astype(f32)
+
+    v = np.minimum(np.maximum(v.astype(f32), lo), hi)
+    k = np.rint(v * log2e).astype(f32)
+    r = fma(k, ln2_hi, v)
+    r = fma(k, ln2_lo, r)
+    p = np.full_like(v, P[0])
+    for coef in P[1:]:
+        p = fma(p, r, coef)
+    e = one + fma((p * r).astype(f32), r, r)
+    bits = (np.maximum(k.astype(np.int64) + 127, 0) << 23).astype(np.uint32)
+    return (e * bits.view(f32)).astype(f32)
+
+
+def test_k3_fp32_exp_is_within_one_ulp_and_unbiased_near_one():
+    """k3_probe's exp_fma (modelled from its text) over [-87, 88]
+    and over decays within 1e-8 .. 0.3 of 1: within one fp32 ulp of e^v,
+    0 at e^v < 2^-126, exactly 1 at v = 0; within 1e-3 of 1 (a long
+    memory's decays) rounded to nearest on nearly all, and over each
+    decade of 1 - e^v without bias: the mean signed error is below 0.01
+    ulp (ex2.approx's is up to 2 ulps)."""
+    f32 = np.float32
+    v = np.concatenate([np.linspace(-87.3, 88.0, 2_000_001, dtype=f32),
+                        -np.logspace(-8, -0.5, 1_000_000).astype(f32)])
+    got = _exp_fma_model(v)
+    want = np.exp(v.astype(np.float64))
+    ulps = np.abs(got - want) / np.spacing(want.astype(f32))
+    assert ulps.max() <= 1.0, ulps.max()
+    assert _exp_fma_model(np.array([0.0, -0.0], f32)).tolist() == [1.0, 1.0]
+    tiny = _exp_fma_model(np.linspace(-104.0, -87.4, 1001, dtype=f32))
+    assert (tiny < 2.0 ** -126).all() and (tiny >= 0).all()
+    assert _exp_fma_model(np.array([-1e4], f32))[0] == 0.0
+    for lo, hi in ((-8, -3), (-3, -2), (-2, -1), (-1, -0.5)):
+        near = -np.logspace(lo, hi, 300_000).astype(f32)
+        got, want = _exp_fma_model(near), np.exp(near.astype(np.float64))
+        signed = (got - want) / np.spacing(want.astype(f32))
+        assert abs(signed.mean()) < 0.01, (lo, hi, signed.mean())
+        if hi <= -3:
+            assert (got == want.astype(f32)).mean() > 0.999
+
+
+def test_k3_float64_arbiter_sees_the_exps_bias():
+    """``selective_scan_ref`` given float64 runs in float64 (the arbiter
+    of the fp32 kernel and the fp32 plain scan).  In the long_memory draw
+    over 2048 steps (16 channels) the scan with unbiased fp32 decays
+    (exp_fma's, modelled above) and the fp32 plain scan (``torch.exp`` on
+    the CPU) are within rtol = atol = 1e-4 of it; every decay 2 ulps high
+    (ex2.approx's most) moves h_last past that."""
+    args = [torch.from_numpy(a) for a in
+            _ssm_decay_case(1, 2048, 16, 16, "long_memory", seed=5)]
+    x, dt, A, B, C, D = args
+    y64, h64 = TR.selective_scan_ref(*(t.double() for t in args))
+    assert y64.dtype == h64.dtype == torch.float64
+    v = (dt[..., None] * A).numpy()           # dt·A rounded to fp32
+    decays = torch.from_numpy(_exp_fma_model(v.ravel()).reshape(v.shape))
+
+    def scan(decays):
+        h, ys = torch.zeros(1, 16, 16), []
+        for l in range(x.shape[1]):
+            h = decays[:, l] * h + (dt[:, l] * x[:, l])[:, :, None] * B[:, l,
+                                                                        None]
+            ys.append(torch.einsum("bdn,bn->bd", h, C[:, l]))
+        return torch.stack(ys, 1) + x * D, h
+
+    for y, h in (scan(decays), TR.selective_scan_ref(*args)):
+        torch.testing.assert_close(y.double(), y64, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(h.double(), h64, rtol=1e-4, atol=1e-4)
+    _, h_biased = scan(decays * (1 + 2.0 ** -23))
+    assert ((h_biased.double() - h64).abs()
+            > 1e-4 + 1e-4 * h64.abs()).any()
+
+
 def test_ssm_layout_and_header():
     """The K3 header lists exactly SSM_TILES, one states-a-thread S for
     each built N, the chunk, the consumer threads and the ring's stages,
