@@ -97,7 +97,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
    bytes and of its own products at the bf16 rate plus its element-wise
    work at the fp32 rate; K3 as a CUDA graph (eager and the fp32 route
    logged), beside its bytes bound its exp count and the special-function
-   units' floor at the SM clock nvidia-smi reads.
+   units' floor at the SM clock nvidia-smi reads;
+8. training, through the plain path under autograd (the reference trains
+   with ``KB = "ref"``; no kernel has a backward pass), every kernel
+   counter held at 0 over every training step:
+   a. Mistral-NeMo-12B at full width, the first 4 of its 40 layers, bf16,
+      global batch 2 x 2048 tokens: variant A (fp32 moments, no remat, 5
+      steps on one batch, its loss must fall), A with remat (its peak
+      memory must be below A's), B (accumulation 2, EF-bf16 compression,
+      remat; its residuals must be non-zero) and C (bf16 moments), each
+      with its step time (host clock, synchronised, median after a warm-up
+      step), tokens/s, model-FLOP share of the bf16 dense peak, peak
+      memory and losses; and one step of A under ``torch.profiler``, its
+      device time split into bf16 products, fp32 products (the plain
+      attention), other kernels and the optimizer;
+   b. glm4 smoke in fp32 (TF32 off): one train step on the card against
+      the same step on the CPU, accumulation 4 against 1 on the card, and
+      the kernel backend refused in a train step;
+   c. ``train_lm --preset 100m`` (the twin of ``examples/train_lm.py``), 30
+      steps at batch 8 x 256 with a checkpoint every 10, its checkpoint
+      restored bit for bit, the run resumed to 40 and held to an
+      uninterrupted continuation.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -1285,6 +1305,10 @@ def main() -> int:
         del mamba_p, state
 
     log(f"  card at the end: {_clocks()}")
+
+    # ---- 8. training ------------------------------------------------------
+    _training(dev, reset)
+
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1890,6 +1914,397 @@ def _row(name, launches, err, kern, plain, lib, b_ms, b_by, shape, *,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4            # phase 8a's cut of Mistral-NeMo-12B's 40 layers
+TRAIN_B, TRAIN_T = 2, 2048  # phase 8a's global batch
+TRAIN_LR = 5e-4
+# phase 8b: the card against the CPU (the reference's own accumulation
+# tolerance, tests/test_runtime.py, for the updated parameters)
+STEP_RTOL = 1e-5            # loss and gradient norm, relative
+GRAD_TOL = 1e-4             # gradients, of each leaf's largest magnitude
+PARAM_ATOL, PARAM_RTOL = 2e-5, 2e-4
+# phase 8c: the resumed run against an uninterrupted one, loss relative
+# (the embedding's backward adds with atomics, so two runs of one step
+# may differ in the last bits, and AdamW carries that on)
+RESUME_RTOL = 1e-3
+NO_KERNEL = ("the reference trains with KB='ref' "
+             "(src/repro/models/blocks.py:19) and no kernel has a backward "
+             "pass")
+
+
+def _training(dev, reset) -> None:
+    """Phase 8; fails unless every training step launched no kernel."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    def no_launches(what):
+        if any(ops.launch_counts()):
+            fail(f"{what}: kernel launches {ops.launch_counts()} over "
+                 f"training, want none: {NO_KERNEL}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 8 training (plain path under autograd; every kernel counter "
+        f"reset before and read after each run: {NO_KERNEL})")
+    _train_full_width(dev, reset, no_launches)
+    _train_consistency(dev, reset, no_launches)
+    _train_lm_twin(dev, reset, no_launches)
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f}s")
+
+
+def _train_full_width(dev, reset, no_launches) -> None:
+    """8a: Mistral-NeMo-12B at full width, cut to TRAIN_LAYERS layers."""
+    import gc
+    import math
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_at
+    from repro_torch.kernels.autotile import PEAK_FLOPS
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.step import build_train_step, make_train_state
+    from repro_torch.tree import tree_leaves
+
+    full = get_config("mistral_nemo_12b")
+    base = dataclasses.replace(full, n_periods=TRAIN_LAYERS)
+    d, V, L = base.d_model, base.vocab_size, TRAIN_LAYERS
+    ends = 2 * V * d                       # embedding and lm_head
+    layer = dataclasses.replace(full, n_periods=1).n_params() - ends
+    N = base.n_params()
+    log(f"phase 8a {base.name} d_model={d} heads=({base.n_heads},"
+        f"{base.n_kv_heads})x{base.hd} d_ff={base.d_ff} vocab={V} bf16, "
+        f"global batch {TRAIN_B} x {TRAIN_T}")
+    log(f"  cut: depth {L} of {full.n_layers} layers: {layer / 1e6:.1f} M "
+        f"parameters a layer and {ends / 1e9:.3f} B for the embedding and "
+        f"lm_head, {N / 1e9:.3f} B at {L} layers; bf16 parameters and "
+        f"gradients and fp32 moments (12 B a parameter) "
+        f"{12 * N / 1e9:.1f} GB; accumulation's fp32 sum and the fp32 EF "
+        f"residuals {4 * N / 1e9:.1f} GB each")
+    # model FLOPs: 6 per parameter and token for the products (the
+    # embedding lookup does none), and the causal attention's QK^T and PV
+    # (half of the T x T pairs) forward and backward: 6·B·Hq·hd·T^2 a layer
+    tokens = TRAIN_B * TRAIN_T
+    flops = (6 * (N - V * d) * tokens
+             + 6 * L * TRAIN_B * base.n_heads * base.hd * TRAIN_T ** 2)
+    peak_flops = PEAK_FLOPS[2]
+    log(f"  model FLOPs a step {flops:.4e} (6 N tokens over the "
+        f"{(N - V * d) / 1e9:.3f} B parameters that multiply, plus causal "
+        f"attention); share of the bf16 dense peak {peak_flops:.3e} FLOP/s")
+    batch = batch_at(SyntheticLM(V, TRAIN_T, TRAIN_B, seed=0), 0, dev)
+    free0, total = torch.cuda.mem_get_info()
+    # (name, remat, accum_steps, compress_grads, moments, steps, indexed):
+    # "indexed" runs the forward of the parent commit, which indexed each
+    # period's parameters out of the stacks (TF._period) where the forward
+    # now unbinds each stack once (TF._unbind): at A's microbatch with
+    # remat, where the extra zero stacks of its backward fit on the card
+    variants = (("A", False, 1, False, torch.float32, 5, False),
+                ("A+remat", True, 1, False, torch.float32, 2, False),
+                ("A+remat indexed", True, 1, False, torch.float32, 2, True),
+                ("B", True, 2, True, torch.float32, 3, False),
+                ("C", False, 1, False, torch.bfloat16, 2, False))
+    unbind = TF._unbind
+    res = {}
+    for name, remat, accum, compress, mdt, steps, indexed in variants:
+        TF._unbind = (lambda tree, n: [TF._period(tree, i) for i in range(n)]
+                      ) if indexed else unbind
+        cfg = dataclasses.replace(base, remat=remat)
+        state = make_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev, compress_grads=compress, opt_dtype=mdt)
+        step = build_train_step(cfg, lr=TRAIN_LR, accum_steps=accum,
+                                compress_grads=compress)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms, losses, gnorms = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        no_launches(f"8a variant {name}")
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(math.isfinite(x) for x in losses + gnorms) and bool(
+            torch.stack([torch.isfinite(t).all()
+                         for t in tree_leaves(state.params)]).all())
+        if not finite:
+            fail(f"8a variant {name}: a loss, gradient norm or updated "
+                 "parameter is not finite")
+        med = statistics.median(ms[1:])
+        res[name] = dict(peak=peak, losses=losses, med=med)
+        log(f"  {name}: remat={remat} accum_steps={accum} "
+            f"compress_grads={compress} moments={str(mdt)[6:]}: step "
+            f"{', '.join(f'{t:.1f}' for t in ms)} ms (median after the "
+            f"first {med:.1f} ms), {tokens / med * 1e3:.0f} tokens/s, "
+            f"model-FLOP share of the bf16 peak "
+            f"{flops / (med / 1e3) / peak_flops:.2%}, peak memory "
+            f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} (headroom "
+            f"{(total - peak) / 2**30:.2f} GiB), losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, grad norms "
+            f"{', '.join(f'{x:.3f}' for x in gnorms)}")
+        if name == "B":
+            ef = sum(float(e.abs().sum()) for e in tree_leaves(state.ef))
+            if not ef > 0:
+                fail("8a variant B: the EF residuals are all zero")
+            log(f"  B: EF residuals sum |r| = {ef:.4e} (non-zero)")
+        if name == "A":
+            _train_profile(cfg, state, batch)
+        del state, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    TF._unbind = unbind
+    a = res["A"]["losses"]
+    if not a[-1] < a[0]:
+        fail(f"8a variant A: the loss did not fall over {len(a)} steps on "
+             f"one batch ({a[0]:.4f} -> {a[-1]:.4f})")
+    log(f"  A's loss falls over its {len(a)} steps on one batch: "
+        f"{a[0]:.4f} -> {a[-1]:.4f}")
+    pa, pr = res["A"]["peak"], res["A+remat"]["peak"]
+    if not pr < pa:
+        fail(f"8a remat: peak {pr / 2**30:.2f} GiB not below "
+             f"{pa / 2**30:.2f} GiB without it")
+    log(f"  remat at A's microbatch: peak {pr / 2**30:.2f} GiB against "
+        f"{pa / 2**30:.2f} GiB without it ({(pa - pr) / 2**30:.2f} GiB "
+        "less)")
+    pi, ri = res["A+remat indexed"]["peak"], res["A+remat indexed"]["med"]
+    log(f"  the stacks unbound once a forward against indexed period by "
+        f"period (the parent's forward), remat on: peak {pr / 2**30:.2f} "
+        f"against {pi / 2**30:.2f} GiB ({(pi - pr) / 2**30:.2f} GiB less), "
+        f"step {res['A+remat']['med']:.1f} against {ri:.1f} ms")
+    if res["A+remat indexed"]["losses"] != res["A+remat"]["losses"]:
+        log("  (the indexed forward's losses differ: "
+            f"{res['A+remat indexed']['losses']})")
+    log(f"  0 kernel launches over every 8a step: {NO_KERNEL}")
+    del batch
+
+
+def _train_profile(cfg, state, batch) -> None:
+    """One step of ``state`` under ``torch.profiler``, as its two parts
+    (forward and backward, then AdamW): each part's host-clock ms and its
+    device time in bf16 products, fp32 products (on this path: the plain
+    attention's QK^T and PV) and other kernels."""
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.step import loss_and_grads
+
+    def buckets(events):
+        out = {"bf16 products": 0.0, "fp32 products": 0.0, "other": 0.0}
+        for e in events:
+            n = e.name.lower()
+            if any(k in n for k in ("gemm", "nvjet", "xmma", "cutlass")):
+                # cuBLAS names its fp32 products f32f32_f32f32 (xmma) or
+                # sgemm; the bf16 ones (nvjet_*_h_*, *bf16*) otherwise
+                fp32 = any(k in n for k in ("sgemm", "f32f32_f32f32",
+                                             "nvjet_sss"))
+                out["fp32 products" if fp32 else "bf16 products"] += \
+                    e.device_time / 1e3
+            else:
+                out["other"] += e.device_time / 1e3
+        return out
+
+    grads = {}
+
+    def fwd_bwd():
+        grads["g"] = loss_and_grads(cfg, state.params, batch)[2]
+
+    fb_ms, fb = _traced(fwd_bwd)
+    opt_ms, opt = _traced(lambda: adamw_update(state.params, grads["g"],
+                                               state.opt, TRAIN_LR))
+    if not fb or not opt:
+        log("  profiler: a trace holds no device event, so the step's "
+            "device time is not measured")
+        return
+    a, b = buckets(fb), buckets(opt)
+    busy = sum(a.values()) + sum(b.values())
+    log(f"  profiled step of A: forward + backward {fb_ms:.1f} ms on the "
+        f"host clock, AdamW {opt_ms:.1f} ms; device busy {busy:.1f} ms: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in a.items())
+        + f", optimizer {sum(b.values()):.1f} ms "
+        f"({sum(b.values()) / busy:.1%}); idle "
+        f"{1 - busy / (fb_ms + opt_ms):.1%} of the host-clock time")
+    top = {}
+    for e in fb + opt:
+        top[e.name] = top.get(e.name, 0.0) + e.device_time / 1e3
+    log("  top kernels: " + "; ".join(
+        f"{k[:60]} {v:.1f} ms" for k, v in
+        sorted(top.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def _train_consistency(dev, reset, no_launches) -> None:
+    """8b: glm4 smoke in fp32, one train step on the card against the CPU,
+    accumulation 4 against 1, and the kernel backend refused."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_at
+    from repro_torch.models import transformer as TF
+    from repro_torch.train.step import (build_train_step, loss_and_grads,
+                                        make_train_state)
+    from repro_torch.tree import tree_leaves, tree_map, tree_paths
+
+    cfg = dataclasses.replace(get_config("glm4_9b", reduced=True),
+                              dtype="float32")
+    log(f"phase 8b {cfg.name} fp32 (TF32 off): a train step on the card "
+        "against the CPU")
+    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0)
+
+    def run(device, accum=1):
+        state = make_train_state(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        state = tree_map(lambda t: t.to(device), state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        _, _, grads = loss_and_grads(cfg, state.params, b, accum)
+        state, m = build_train_step(cfg, lr=1e-3, accum_steps=accum)(
+            state, b)
+        return ({k: float(v) for k, v in m.items()},
+                [g.cpu() for g in tree_leaves(grads)],
+                [(p, t.cpu()) for p, t in tree_paths(state.params)])
+
+    reset()
+    mc, gc_, pc = run("cpu")
+    mg, gg, pg = run(dev)
+    m4, _, p4 = run(dev, accum=4)
+    no_launches("8b")
+    for k in ("loss", "grad_norm"):
+        rel = abs(mg[k] - mc[k]) / abs(mc[k])
+        log(f"  {k}: card {mg[k]:.7f} CPU {mc[k]:.7f} (rel {rel:.2e}, tol "
+            f"{STEP_RTOL:g})")
+        if rel > STEP_RTOL:
+            fail(f"8b {k}: the card and the CPU differ by {rel:.2e}")
+    worst_g = 0.0
+    for a, b in zip(gc_, gg):
+        worst_g = max(worst_g, float((a - b).abs().max())
+                      / max(float(a.abs().max()), 1e-30))
+    log(f"  gradients: worst |card - CPU| / leaf max {worst_g:.2e} (tol "
+        f"{GRAD_TOL:g})")
+    if worst_g > GRAD_TOL:
+        fail("8b gradients: the card and the CPU differ")
+    exempt = 0
+    for g, (path, want), (_, got) in zip(gc_, pc, pg):
+        bad = (got - want).abs() > PARAM_ATOL + PARAM_RTOL * want.abs()
+        tiny = g.abs() < GRAD_TOL * float(g.abs().max())
+        if bool((bad & ~tiny).any()):
+            fail(f"8b updated {path}: outside {PARAM_ATOL:g} + "
+                 f"{PARAM_RTOL:g}|x| where the gradient is not at rounding "
+                 "level")
+        exempt += int(bad.sum())
+    log(f"  updated parameters within {PARAM_ATOL:g} + {PARAM_RTOL:g}|x| "
+        f"of the CPU's ({exempt} elements outside, each with |g| below "
+        f"{GRAD_TOL:g} of its leaf's largest: AdamW's first step moves an "
+        "element by about lr sign(g))")
+    worst = 0.0
+    for (path, a), (_, b) in zip(pg, p4):
+        ex = float(((b - a).abs() - PARAM_RTOL * a.abs()).max())
+        worst = max(worst, ex)
+        if ex > PARAM_ATOL:
+            fail(f"8b accum 4 vs 1, {path}: outside {PARAM_ATOL:g} + "
+                 f"{PARAM_RTOL:g}|x|")
+    log(f"  accum_steps=4 against 1 on the card: every leaf within "
+        f"{PARAM_ATOL:g} + {PARAM_RTOL:g}|x| (worst excess over the "
+        f"relative part {worst:.2e}); loss {m4['loss']:.7f} (the mean of "
+        f"the microbatches' CE) against {mg['loss']:.7f}")
+    try:
+        build_train_step(cfg, backend="kernel")
+    except ValueError as e:
+        log(f"  build_train_step(backend='kernel') refused: {e}")
+    else:
+        fail("8b: a train step with backend='kernel' was built")
+    state = make_train_state(cfg, torch.Generator(dev).manual_seed(0), dev)
+    live = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    try:
+        TF.loss_fn(live, b, cfg, backend="kernel")
+    except RuntimeError as e:
+        log(f"  the loss through the kernels under autograd raised: {e}")
+    else:
+        fail("8b: a kernel ran under autograd with inputs that require grad")
+
+
+def _train_lm_twin(dev, reset, no_launches) -> None:
+    """8c: the twin of examples/train_lm.py at --preset 100m, checkpointed,
+    restored and resumed."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.data.pipeline import SyntheticLM, batch_at
+    from repro_torch.optim.adamw import cosine_schedule
+    from repro_torch.train import train_lm
+    from repro_torch.train.step import build_train_step, make_train_state
+    from repro_torch.tree import tree_paths
+
+    cfg = train_lm.preset("100m")
+    B, T = 8, 256
+    log(f"phase 8c train_lm twin --preset 100m ({cfg.n_params() / 1e6:.1f}M "
+        f"parameters, {cfg.n_layers} layers, fp32), batch {B} x {T}, "
+        "checkpoints every 10 steps")
+
+    def main(d, steps):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            run = train_lm.main(["--preset", "100m", "--steps", str(steps),
+                                 "--batch", str(B), "--seq", str(T),
+                                 "--ckpt", d, "--ckpt-every", "10",
+                                 "--device", "cuda"])
+        torch.cuda.synchronize()
+        for line in out.getvalue().splitlines():
+            log(f"    {line}")
+        return run, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        reset()
+        first, s1 = main(d, 30)
+        no_launches("8c")
+        l0, l29 = first.losses[0], first.losses[29]
+        log(f"  30 steps in {s1:.1f} s (checkpoints included); loss at step "
+            f"0 {l0:.4f}, at step 29 {l29:.4f}")
+        if not l29 < l0:
+            fail("8c: the loss at step 29 is not below the loss at step 0")
+        step, restored = CheckpointManager(d).restore(
+            make_train_state(cfg, device="meta"), device=dev)
+        if step != 30:
+            fail(f"8c: the latest checkpoint is step {step}, want 30")
+        for (path, a), (_, b) in zip(tree_paths(restored),
+                                     tree_paths(first.state)):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                fail(f"8c restore: {path} differs from the saved state")
+        log(f"  restored step {step}: every one of "
+            f"{len(tree_paths(restored))} leaves equal to the saved state, "
+            "bit for bit")
+        del restored
+        reset()
+        again, s2 = main(d, 40)
+        no_launches("8c resume")
+        if again.start != 30 or sorted(again.losses) != list(range(30, 40)):
+            fail(f"8c: the re-run resumed at {again.start}, want 30")
+        ds = SyntheticLM(cfg.vocab_size, T, B, seed=0)
+        step_fn = build_train_step(cfg, lr=cosine_schedule(3e-3, 20, 40))
+        _, cont = train_lm.train(step_fn, first.state,
+                                 lambda i: batch_at(ds, i, dev), 30, 40,
+                                 tokens_per_step=B * T, log=lambda s: None)
+        worst = max(abs(again.losses[i] - cont[i]) / abs(cont[i])
+                    for i in cont)
+        log(f"  resumed at 30 and ran to 40 in {s2:.1f} s; losses 30-39 "
+            f"against an uninterrupted continuation from the in-memory "
+            f"state: worst relative difference {worst:.2e} (tol "
+            f"{RESUME_RTOL:g}); loss at 39 {again.losses[39]:.4f}")
+        if worst > RESUME_RTOL:
+            fail("8c: the resumed run departs from the uninterrupted one")
 
 
 if __name__ == "__main__":

@@ -23,6 +23,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
@@ -31,6 +33,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}   # one loaded library per source
+
+
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if autograd would record a kernel call: no kernel has a
+    backward pass, so its output would carry no ``grad_fn`` and a training
+    step would silently lose the gradients of everything upstream (the
+    reference never differentiates a ``pallas_call`` either: it trains on
+    its plain path).  Train with ``backend="ref"``; run the kernels under
+    ``torch.no_grad()`` / ``torch.inference_mode()`` or on tensors that do
+    not require grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {what} kernel has no backward pass, and an input requires "
+            "grad: train with backend='ref' (the plain path, which autograd "
+            "differentiates), or call it under torch.no_grad()")
 
 
 def sources() -> list[str]:

@@ -117,6 +117,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`repro_torch.kernels.autotile.attention_tiles`.  Counts its
     launches in ``.launches`` and, of those, the ones the library reports
     on the tensor-core kernel in ``.tensor_core_launches``."""
+    _build.refuse_autograd("flash attention", q, k, v)
     _check(q, k, v)
     B, Hq, Tq, D = q.shape
     built = attention_built_tiles(D, q.element_size())
@@ -155,6 +156,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from the caching allocator: nothing makes the host wait, so the call
     can be captured in a CUDA graph.  Counts its calls in ``.launches`` and,
     of those, the ones over more than one split in ``.split_launches``."""
+    _build.refuse_autograd("flash decode", q, k, v)
     _check(q, k, v)
     B, Hq, Tq, D = q.shape
     _, Hkv, S, _ = k.shape

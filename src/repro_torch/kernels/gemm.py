@@ -86,6 +86,7 @@ def gemm_cuda(x: torch.Tensor, w: torch.Tensor, *, bm: int, bn: int,
     K sweep split into ``splits`` ranges (default:
     :func:`repro_torch.kernels.autotile.gemm_splits` of the shapes).
     Returns (M, N) in x's dtype."""
+    _build.refuse_autograd("gemm", x, w)
     _check(x, w, (bm, bn, bk))
     (M, K), N = x.shape, w.shape[1]
     if splits is None:

@@ -3,7 +3,10 @@ the GEMM, attention, the Mamba selective scan and the RWKV-6 recurrence.
 
 The device of the tensors picks the path: a CPU tensor takes the plain
 version of :mod:`repro_torch.kernels.ref`; any other tensor goes to the CUDA
-kernel, whose wrapper launches it or raises.  Nothing falls back.  The
+kernel, whose wrapper launches it or raises.  Nothing falls back.  No
+kernel has a backward pass, so a CUDA wrapper also raises when autograd
+would record its call (``_build.refuse_autograd``): training runs the
+plain path (``backend="ref"``), as the reference's does.  The
 kernels mask ragged shapes themselves, so unlike the reference's Pallas
 path these wrappers pad nothing and assert no multiple of a tile (``gemm``
 takes any M, N and K with ``gemm_tiles``' tiles and ``gemm_splits``' split

@@ -101,6 +101,7 @@ def rwkv6_cuda(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fp32 or all bf16.  Returns (o (B, H, T, Dv) in r.dtype, S_last
     (B, H, Dk, Dv) fp32).  Counts the call in ``.launches`` and, where the
     library reports the tensor-core kernel, in ``.tensor_core_launches``."""
+    _build.refuse_autograd("rwkv6", r, k, v, w, u)
     _check(r, k, v, w, u)
     B, H, T, Dk = r.shape
     Dv = v.shape[-1]

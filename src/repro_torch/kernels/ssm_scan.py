@@ -97,6 +97,7 @@ def ssm_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x/dt (Bt, L, Dm) and B/C (Bt, L, N) on the card, all fp32 or all
     bf16; A (Dm, N) and D (Dm,) fp32.  Returns (y (Bt, L, Dm) in x.dtype,
     h_last (Bt, Dm, N) fp32)."""
+    _build.refuse_autograd("ssm_scan", x, dt, A, B, C, D)
     _check(x, dt, A, B, C, D)
     Bt, L, Dm = x.shape
     N = A.shape[1]

@@ -17,15 +17,17 @@ Logits are in the model dtype, as the reference returns them.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels import ref as R
 from . import blocks as B
 from .common import BlockSpec, ModelConfig, check_device, make_dense, rms_norm
-from .transformer import _check_backend, _period
+from .transformer import _check_backend, _period, _unbind
 
 __all__ = ["init_params_encdec", "forward_encdec", "encode",
-           "init_decode_state_encdec", "decode_step_encdec"]
+           "loss_fn_encdec", "init_decode_state_encdec",
+           "decode_step_encdec"]
 
 _SELF = BlockSpec(kind="attn")
 
@@ -103,8 +105,7 @@ def encode(params, enc_embeds, cfg: ModelConfig, backend: str = "kernel"):
     _check_backend(backend)
     T = enc_embeds.shape[1]
     x = enc_embeds.to(cfg.torch_dtype) + params["enc_pos"][None, :T]
-    for i in range(cfg.n_enc_layers):
-        p = _period(params["enc"], i)
+    for p in _unbind(params["enc"], cfg.n_enc_layers):
         x = _self_attn_enc(cfg, p["self"], x, backend)
         x = B.mlp_fwd(cfg, p["ffn"], x)
     return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
@@ -120,16 +121,32 @@ def forward_encdec(params, tokens, enc_embeds, cfg: ModelConfig,
     """tokens (B, T) int, enc_embeds (B, T_enc, d) → logits (B, T, V) in
     the model dtype."""
     enc_out = encode(params, enc_embeds, cfg, backend)
-    x = params["embed"]["table"][tokens.long()].to(cfg.torch_dtype)
+    x = F.embedding(tokens.long(), params["embed"]["table"]).to(
+        cfg.torch_dtype)
     Bsz, T, _ = x.shape
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(Bsz, T)
-    for i in range(cfg.n_layers):
-        p = _period(params["dec"], i)
+    for p in _unbind(params["dec"], cfg.n_layers):
         x = B.attn_fwd(cfg, _SELF, p["self"], x, positions, backend)
         x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
         x = B.mlp_fwd(cfg, p["ffn"], x)
     return _logits(params, x, cfg)
+
+
+def loss_fn_encdec(params, batch, cfg: ModelConfig, backend: str = "ref"):
+    """batch: {tokens, labels (< 0 masked), enc_embeds}.  CE through the
+    fp32 ``log_softmax`` of the logits, as the reference computes it here
+    (its decoder LM's loss takes the logsumexp form).  Returns (ce,
+    {"ce", "aux": 0}); no remat, as in the reference."""
+    logits = forward_encdec(params, batch["tokens"], batch["enc_embeds"],
+                            cfg, backend)
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    mask = labels >= 0
+    ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    loss = -(ll * mask).sum() / mask.sum().clamp_min(1)
+    return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
+                                                 device=loss.device)}
 
 
 def init_decode_state_encdec(cfg: ModelConfig, batch: int, max_len: int,

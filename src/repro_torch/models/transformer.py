@@ -2,12 +2,16 @@
 (``repro.models.transformer``'s counterpart for layer patterns of attention
 and Mamba blocks, each with a dense or an MoE FFN, and of RWKV-6 blocks;
 ``forward`` takes a vision or audio prefix of embeddings before the
-tokens).  Encoder-decoder models are :mod:`repro_torch.models.encdec`'s.
+tokens) and ``loss_fn`` trains it.  Encoder-decoder models are
+:mod:`repro_torch.models.encdec`'s.
 
 Parameters and decode states are nested dicts of tensors with the same
 keys and shapes as the reference's pytrees, stacked over the period axis,
 so :func:`repro_torch.convert.params_from_jax` maps one onto the other
-leaf by leaf.  The period loop is a Python loop (PyTorch runs eagerly).
+leaf by leaf.  The period loop is a Python loop (PyTorch runs eagerly);
+with ``cfg.remat`` each period of a forward that records gradients is
+rematerialized in the backward pass (the reference's ``jax.checkpoint``
+with ``nothing_saveable``).
 """
 
 from __future__ import annotations
@@ -16,11 +20,14 @@ import math
 import struct
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as B
 from .common import ModelConfig, check_device, make_dense, rms_norm, softcap
 
-__all__ = ["init_params", "forward", "init_decode_state", "decode_step"]
+__all__ = ["init_params", "forward", "loss_fn", "init_decode_state",
+           "decode_step"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -47,6 +54,16 @@ def _period(tree, i: int):
     if isinstance(tree, dict):
         return {k: _period(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` periods' parameters as views of the stacks, each stack cut
+    once: under autograd the backward of one ``unbind`` is one ``stack``,
+    where indexing every period would make a zero stack per period."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +127,10 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    x = params["embed"]["table"][tokens.long()].to(cfg.torch_dtype)
+    # F.embedding, not indexing: its backward sums a row's gradients in a
+    # fixed order (indexing's accumulates with atomics on the CPU)
+    x = F.embedding(tokens.long(), params["embed"]["table"]).to(
+        cfg.torch_dtype)
     if cfg.scale_embeddings:
         # the factor rounded to the model dtype first, as the reference
         # does; x times a model-dtype scalar rounds once from the exact
@@ -126,12 +146,34 @@ def _logits(params, x, cfg: ModelConfig):
     return softcap((x @ head.to(x.dtype)).float(), cfg.final_softcap)
 
 
+def _period_fwd(cfg: ModelConfig, pp, x, aux, positions, backend: str):
+    """One period of the layer pattern: (x, aux) → (x, aux + its MoE aux
+    losses, added layer by layer)."""
+    for i, spec in enumerate(cfg.layer_pattern):
+        p = pp[f"pos{i}"]
+        if spec.kind == "rwkv":   # time mix and channel mix in one
+            x = B.rwkv_fwd(cfg, p["core"], x, backend)
+            continue
+        if spec.kind == "mamba":
+            x = B.mamba_fwd(cfg, p["core"], x, backend)
+        else:
+            x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
+        if spec.moe:
+            x, a = B.moe_fwd(cfg, p["ffn"], x)
+            aux = aux + a
+        else:
+            x = B.mlp_fwd(cfg, p["ffn"], x)
+    return x, aux
+
+
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
             backend: str = "kernel"):
     """tokens (B, T) int; ``prefix_embeds`` an optional (B, P, d) prefix
     of patch or frame embeddings, put before the (scaled) token embeddings.
     Returns fp32 logits (B, P + T, V) and the MoE aux loss summed over
-    layers (a 0-d fp32 tensor, 0 without MoE layers)."""
+    layers (a 0-d fp32 tensor, 0 without MoE layers).  With ``cfg.remat``
+    and gradients recorded, each period keeps only its input for the
+    backward pass and runs again there; the numbers are the same."""
     check_supported(cfg)
     _check_backend(backend)
     x = _embed(params, tokens, cfg)
@@ -141,23 +183,34 @@ def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
     positions = torch.arange(T, dtype=torch.int32,
                              device=x.device).expand(Bsz, T)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for per in range(cfg.n_periods):
-        pp = _period(params["layers"], per)
-        for i, spec in enumerate(cfg.layer_pattern):
-            p = pp[f"pos{i}"]
-            if spec.kind == "rwkv":   # time mix and channel mix in one
-                x = B.rwkv_fwd(cfg, p["core"], x, backend)
-                continue
-            if spec.kind == "mamba":
-                x = B.mamba_fwd(cfg, p["core"], x, backend)
-            else:
-                x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
-            if spec.moe:
-                x, a = B.moe_fwd(cfg, p["ffn"], x)
-                aux = aux + a
-            else:
-                x = B.mlp_fwd(cfg, p["ffn"], x)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for pp in _unbind(params["layers"], cfg.n_periods):
+        if remat:
+            x, aux = checkpoint(_period_fwd, cfg, pp, x, aux, positions,
+                                backend, use_reentrant=False)
+        else:
+            x, aux = _period_fwd(cfg, pp, x, aux, positions, backend)
     return _logits(params, x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, backend: str = "ref"):
+    """Next-token cross-entropy.  ``batch``: {tokens (B, T), labels (B, T)
+    (< 0 masked)[, prefix_embeds (B, P, d)]}; the prefix's rows are
+    dropped.  CE is ``logsumexp(logits) − logits[label]``, so the (B, T, V)
+    log-probabilities are never made.  Returns (ce + aux, {"ce", "aux"}).
+    ``backend`` "ref" by default: the reference trains on its plain path
+    (``KB = "ref"``), and the kernels have no backward pass."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          batch.get("prefix_embeds"), backend=backend)
+    labels = batch["labels"].long()
+    P = logits.shape[1] - labels.shape[1]
+    if P:
+        logits = logits[:, P:]
+    lse = torch.logsumexp(logits, dim=-1)                     # (B, T)
+    ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = labels >= 0
+    loss = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1)
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -916,3 +916,111 @@ def test_captured_step_logits_are_the_callers(card):
     ptrs = {logits.data_ptr() for logits, _ in outs}
     assert len(ptrs) == 4
     assert not torch.equal(outs[1][0], outs[2][0])
+
+
+# ---------------------------------------------------------------------------
+# training: the plain path under autograd, the kernels refusing it
+# ---------------------------------------------------------------------------
+
+def _train_inputs(cfg, dev):
+    from repro_torch.data.pipeline import SyntheticLM, batch_at
+    from repro_torch.train.step import make_train_state
+    state = make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0)
+    if dev.type == "cpu":
+        return state, batch
+    from repro_torch.tree import tree_map
+    return (tree_map(lambda t: t.to(dev), state),
+            {k: v.to(dev) for k, v in batch.items()})
+
+
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """glm4 smoke in fp32, TF32 off, from the same parameters and batch:
+    the loss and the gradient norm within 1e-5 relative, the gradients
+    within 1e-4 of each leaf's largest magnitude, every updated parameter
+    within 2e-5 + 2e-4 · |x| where the gradient is above that bound (AdamW's
+    first step moves an element by about lr · sign(g)); then accumulation
+    over 4 microbatches against 1 on the card at that tolerance."""
+    from repro_torch.train.step import build_train_step, loss_and_grads
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("glm4_9b", reduced=True),
+                              dtype="float32")
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        state, batch = _train_inputs(cfg, dev)
+        _, _, grads = loss_and_grads(cfg, state.params, batch)
+        state, m = build_train_step(cfg, lr=1e-3)(state, batch)
+        out[dev.type] = (m, [g.cpu() for g in tree_leaves(grads)],
+                         [p.cpu() for p in tree_leaves(state.params)])
+    (mc, gc, pc), (mg, gg, pg) = out["cpu"], out["cuda"]
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=0)
+    for a, b, want, got in zip(gc, gg, pc, pg):
+        tol = 1e-4 * float(a.abs().max())
+        assert float((a - b).abs().max()) <= tol
+        bad = (got - want).abs() > 2e-5 + 2e-4 * want.abs()
+        assert bool((a.abs()[bad] < tol).all())
+    # accumulation over 4 microbatches against the whole batch, on the card
+    res = []
+    for accum in (1, 4):
+        state, batch = _train_inputs(cfg, card)
+        state, _ = build_train_step(cfg, lr=1e-3, accum_steps=accum)(
+            state, batch)
+        res.append([p.cpu() for p in tree_leaves(state.params)])
+    for a, b in zip(*res):
+        torch.testing.assert_close(b, a, rtol=2e-4, atol=2e-5)
+
+
+def test_every_kernel_wrapper_raises_under_autograd(card):
+    """Each ops.* entry point on card tensors that require grad raises (no
+    kernel has a backward pass) and launches nothing; under no_grad the
+    same call launches."""
+    g = torch.Generator(card).manual_seed(0)
+    bf = torch.bfloat16
+
+    def r(*shape, dtype=bf):
+        return _rand(g, shape, dtype, card)
+
+    calls = {
+        "gemm": lambda t: ops.gemm(t(r(64, 64)), r(64, 64)),
+        "flash_attention": lambda t: ops.flash_attention(
+            t(r(1, 2, 64, 64)), r(1, 2, 64, 64), r(1, 2, 64, 64)),
+        "decode_attention": lambda t: ops.decode_attention(
+            t(r(1, 2, 1, 64)), r(1, 2, 64, 64), r(1, 2, 64, 64)),
+        "rwkv6": lambda t: ops.rwkv6(
+            t(r(1, 2, 32, 64)), r(1, 2, 32, 64), r(1, 2, 32, 64),
+            torch.rand(1, 2, 32, 64, generator=g, device=card).to(bf),
+            r(2, 64)),
+        "ssm_scan": lambda t: ops.ssm_scan(
+            t(r(1, 32, 64)), torch.rand(1, 32, 64, generator=g,
+                                        device=card).to(bf),
+            -torch.rand(64, 16, generator=g, device=card), r(1, 32, 16),
+            r(1, 32, 16), torch.ones(64, device=card)),
+    }
+    for name, call in calls.items():
+        before = ops.launch_counts()
+        with pytest.raises(RuntimeError, match="no backward pass"):
+            call(lambda t: t.requires_grad_())
+        assert ops.launch_counts() == before, name
+        with torch.no_grad():
+            call(lambda t: t.requires_grad_())
+        assert ops.launch_counts() != before, name
+
+
+def test_async_checkpoint_snapshot_survives_an_update_on_the_card(card,
+                                                                  tmp_path):
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.train.step import build_train_step, make_train_state
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("glm4_9b", reduced=True),
+                              dtype="float32")
+    state, batch = _train_inputs(cfg, card)
+    before = [t.clone() for t in tree_leaves(state)]
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(1, state, blocking=False)
+    state, _ = build_train_step(cfg, lr=1e-2)(state, batch)
+    mgr.wait()
+    _, got = mgr.restore(make_train_state(cfg, device="meta"), device=card)
+    for x, y in zip(tree_leaves(got), before):
+        assert torch.equal(x, y)
+    assert not torch.equal(tree_leaves(state)[0], before[0])

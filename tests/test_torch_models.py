@@ -721,9 +721,16 @@ def test_port_imports_neither_jax_nor_repro_at_runtime():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n")
+        "print(' '.join(m for m in sys.modules "
+        "if m.startswith('repro_torch')))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    mods = set(res.stdout.split())
+    assert len(mods) >= 15
+    # the training modules are among those walked
+    assert {"repro_torch.optim.adamw", "repro_torch.train.step",
+            "repro_torch.train.train_lm", "repro_torch.data.pipeline",
+            "repro_torch.ckpt.manager", "repro_torch.ft.straggler",
+            "repro_torch.tree", "repro_torch.convert"} <= mods
