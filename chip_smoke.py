@@ -119,6 +119,20 @@ Phases, each of which stops the run with a non-zero exit on failure:
       restored bit for bit, the run resumed to 40 and held to an
       uninterrupted continuation.
 
+9. the DSE scoring engine (``repro_torch.dse.batch_sweep.prefill_sweep``,
+   no kernel of its own: plain PyTorch in int64/float64): the mapping
+   cache of the ``large`` space (624 designs in 28 tiles) over the DSE's
+   default zoo at seq 512 and 4096, objective cycles, prefilled on the
+   card into ``.chipscratch/``, its wall time split into host enumeration,
+   dispatches (and their device time by CUDA events) and host selection
+   plus rescoring, candidates scored a second, entries written and peak
+   device memory; the card's raw (design, candidate) scores of every
+   design held to the NumPy ``perf_kernel`` design by design (integer
+   outputs bit-identical, ``energy_pj`` within ENERGY_RTOL, the largest
+   difference logged); the cache's winners of every tile's first design
+   held to ``best_mappings(engine="numpy")``; and the first tile prefilled
+   again by the card and by the NumPy engine, each timed.
+
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
 """
@@ -1309,6 +1323,9 @@ def main() -> int:
     # ---- 8. training ------------------------------------------------------
     _training(dev, reset)
 
+    # ---- 9. DSE scoring engine ---------------------------------------------
+    _dse(dev, smi)
+
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2305,6 +2322,148 @@ def _train_lm_twin(dev, reset, no_launches) -> None:
             f"{RESUME_RTOL:g}); loss at 39 {again.losses[39]:.4f}")
         if worst > RESUME_RTOL:
             fail("8c: the resumed run departs from the uninterrupted one")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the DSE scoring engine
+# ---------------------------------------------------------------------------
+
+DSE_SPACE, DSE_SEQS, DSE_TILE = "large", (512, 4096), 32
+
+
+def _dse(dev, smi: str) -> None:
+    """Phase 9: the `large` space's mapping prefill on the card, its raw
+    scores held to the NumPy kernel and its winners to the NumPy engine."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.mapper_batch import (_dn_row, _true_rows,
+                                               best_mappings, build_batch)
+    from repro_torch.core.perf_model import perf_kernel
+    from repro_torch.core.perf_model_torch import (ENERGY_RTOL, RESULT_KEYS,
+                                                   perf_kernel_torch_design)
+    from repro_torch.dse import batch_sweep as B
+    from repro_torch.dse.cache import MappingCache, mapping_key
+    from repro_torch.dse.space import SPACES
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    space = SPACES[DSE_SPACE]
+    zoo = B.sweep_zoo(B.DEFAULT_ZOO, DSE_SEQS)
+    path = ROOT / ".chipscratch" / "dse_large_cache.json"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    log(f"phase 9 DSE scoring engine: space {space.name}, zoo "
+        f"{','.join(B.DEFAULT_ZOO)}, seq {DSE_SEQS}, d_tile {DSE_TILE}, "
+        f"objective cycles [{smi}]")
+
+    # 9a. the main path: prefill_sweep on the card, cold cache
+    cache = MappingCache(path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = B.prefill_sweep(space, zoo, cache, objective="cycles",
+                         d_tile=DSE_TILE, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    t0 = time.perf_counter()
+    cache.save()
+    save_s = time.perf_counter() - t0
+    if st["designs"] != 624 or st["dispatches"] == 0 or \
+            st["device_ms"] <= 0 or st["entries_added"] != len(cache) or \
+            len(MappingCache(path)) != len(cache):
+        fail(f"DSE prefill: {st}, {len(cache)} entries in the cache")
+    log(f"  9a prefill: {st['designs']} designs in {st['tiles']} tiles, "
+        f"{st['dispatches']} dispatches, {st['entries_added']} entries "
+        f"written, {st['candidates_scored']} candidates scored")
+    log(f"     wall {st['wall_s']:.3f} s = host enumeration (build_batch) "
+        f"{st['enum_s']:.3f} + dispatches {st['dispatch_s']:.3f} (device "
+        f"{st['device_ms']:.1f} ms by CUDA events) + host selection and "
+        f"rescoring {st['select_s']:.3f} + query planning and cache puts "
+        f"{st['other_s']:.3f}; save {save_s:.3f} s")
+    log(f"     {st['candidates_scored'] / st['wall_s']:.0f} candidates/s "
+        f"over the wall time, "
+        f"{st['candidates_scored'] / st['dispatch_s']:.0f} over the "
+        f"dispatches; peak device memory {peak:.1f} MiB; largest batch per "
+        f"kind (candidates, loops): {st['kinds']}")
+
+    # 9b. the card's raw (D, C) scores against the NumPy kernel, design by
+    # design, every design of every tile
+    t0 = time.perf_counter()
+    tiles = B.plan_tiles(list(space.enumerate()), DSE_TILE)
+    worst, n_designs, n_rows = 0.0, 0, 0
+    for tile in tiles:
+        hws = [p.hw_config() for p in tile]
+        for wl, sps, dn, queries in B.prefill_queries(zoo, tile[0]):
+            dims_list = [q[0] for q in queries]
+            b = build_batch(wl, dims_list, sps, hws[0])
+            true = _true_rows(wl, dims_list)[b.layer_id]
+            ppu = np.array([q[1] for q in queries])[b.layer_id]
+            dn_rows = np.array([_dn_row(wl, hw, dn) for hw in hws])
+            args = (b.loop_dim, b.loop_size, b.S, b.n_fus, b.fill, true)
+            got = perf_kernel_torch_design(wl, hws, *args, dn_rows, ppu,
+                                           device=dev)
+            for di, hw in enumerate(hws):
+                want = perf_kernel(wl, hw, *args, np.broadcast_to(
+                    dn_rows[di], (b.n_candidates, dn_rows.shape[1])), ppu)
+                for k in RESULT_KEYS:
+                    g = got[k][di]
+                    if k == "energy_pj":
+                        rel = float(np.max(np.abs(g - want[k])
+                                           / np.abs(want[k])))
+                        worst = max(worst, rel)
+                        if rel > ENERGY_RTOL:
+                            fail(f"DSE {tile[di].name} {wl.name}: energy_pj "
+                                 f"{rel:.3e} from NumPy's, over "
+                                 f"{ENERGY_RTOL:g}")
+                    elif not np.array_equal(g, want[k]):
+                        fail(f"DSE {tile[di].name} {wl.name}: {k} differs "
+                             f"from NumPy's perf_kernel")
+                n_rows += b.n_candidates
+        n_designs += len(tile)
+    log(f"  9b raw scores of all {n_designs} designs ({n_rows} design x "
+        f"candidate rows) vs the NumPy perf_kernel: integer outputs "
+        f"bit-identical, energy_pj max rel diff {worst:.3e} (gate "
+        f"{ENERGY_RTOL:g}) in {time.perf_counter() - t0:.1f}s")
+
+    # 9c. the cache's winners of every tile's first design against the
+    # NumPy engine's mappings
+    t0 = time.perf_counter()
+    n_q = 0
+    for tile in tiles:
+        p, hw = tile[0], tile[0].hw_config()
+        for wl, sps, dn, queries in B.prefill_queries(zoo, p):
+            want = best_mappings(wl, queries, sps, hw,
+                                 data_nodes_per_tensor=dn,
+                                 objective="cycles", engine="numpy")
+            for (dims, ppu), m in zip(queries, want):
+                e = cache.get(mapping_key(wl, dims, sps, hw, dn, ppu,
+                                          "cycles"))
+                if e != {"perf": m.perf.as_dict(), "spatial": m.spatial.name,
+                         "dataflow": m.dataflow.name}:
+                    fail(f"DSE {p.name} {wl.name} {dims}: the cache holds "
+                         f"{e}, the NumPy engine gives {m}")
+                n_q += 1
+    log(f"  9c winners: {n_q} queries of {len(tiles)} tiles' first designs "
+        f"== best_mappings(engine='numpy') (perf, spatial, dataflow) in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # 9d. one tile by the card and by the NumPy engine, in turns
+    times = {}
+    for engine in ("torch", "numpy", "numpy", "torch"):
+        one = B.new_stats()
+        t0 = time.perf_counter()
+        B.prefill_tile(zoo, tiles[0], MappingCache(), "cycles", device=dev,
+                       engine=engine, stats=one)
+        times.setdefault(engine, []).append(
+            (time.perf_counter() - t0, one["dispatch_s"]))
+    log(f"  9d first tile ({len(tiles[0])} designs x {tiles[0][0].n_fus} "
+        f"FUs): wall / scoring s, card "
+        + ", ".join(f"{w:.3f} / {d:.3f}" for w, d in times["torch"])
+        + "; NumPy engine "
+        + ", ".join(f"{w:.3f} / {d:.3f}" for w, d in times["numpy"]))
+    log(f"phase 9 done in {time.perf_counter() - t_phase:.1f}s")
 
 
 if __name__ == "__main__":

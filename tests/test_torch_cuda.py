@@ -1024,3 +1024,73 @@ def test_async_checkpoint_snapshot_survives_an_update_on_the_card(card,
     for x, y in zip(tree_leaves(got), before):
         assert torch.equal(x, y)
     assert not torch.equal(tree_leaves(state)[0], before[0])
+
+
+def _large_gemm_tile():
+    """The GEMM queries of the `large` space's first tile (4096 FUs) over
+    the DSE's default zoo at seq 512 and 4096, as one candidate batch."""
+    import numpy as np
+
+    from repro_torch.core.mapper_batch import _dn_row, _true_rows, build_batch
+    from repro_torch.dse import batch_sweep as B
+    from repro_torch.dse.space import SPACES
+    tile = B.plan_tiles(list(SPACES["large"].enumerate()))[0]
+    zoo = B.sweep_zoo(B.DEFAULT_ZOO, (512, 4096))
+    (wl, sps, dn, queries), = [q for q in B.prefill_queries(zoo, tile[0])
+                               if q[0].name == "gemm"]
+    hws = [p.hw_config() for p in tile]
+    b = build_batch(wl, [q[0] for q in queries], sps, hws[0])
+    true = _true_rows(wl, [q[0] for q in queries])[b.layer_id]
+    ppu = np.array([q[1] for q in queries])[b.layer_id]
+    dn_rows = np.array([_dn_row(wl, hw, dn) for hw in hws])
+    return wl, hws, b, true, ppu, dn_rows
+
+
+def _held_to_numpy(got, want):
+    """The engine contract: integer-derived outputs bit-identical,
+    energy_pj within ENERGY_RTOL."""
+    import numpy as np
+
+    from repro_torch.core.perf_model_torch import ENERGY_RTOL, RESULT_KEYS
+    for k in RESULT_KEYS:
+        if k == "energy_pj":
+            np.testing.assert_allclose(got[k], want[k], rtol=ENERGY_RTOL,
+                                       atol=0)
+        else:
+            assert np.array_equal(got[k], want[k]), k
+
+
+def test_dse_scoring_engine_on_the_card_matches_numpy(card):
+    """The int64 footprint contraction and the level choice run on the card
+    only here (the CPU takes int64 matrix products, CUDA does not)."""
+    import numpy as np
+
+    from repro_torch.core.perf_model import perf_kernel
+    from repro_torch.core.perf_model_torch import (perf_kernel_torch,
+                                                   perf_kernel_torch_design)
+    wl, hws, b, true, ppu, dn_rows = _large_gemm_tile()
+    assert b.n_candidates > 20000
+    args = (b.loop_dim, b.loop_size, b.S, b.n_fus, b.fill, true)
+    got = perf_kernel_torch_design(wl, hws, *args, dn_rows, ppu)
+    for di, hw in enumerate(hws):
+        dn = np.broadcast_to(dn_rows[di], (b.n_candidates, dn_rows.shape[1]))
+        want = perf_kernel(wl, hw, *args, dn, ppu)
+        _held_to_numpy({k: v[di] for k, v in got.items()}, want)
+        if di == 0:
+            _held_to_numpy(perf_kernel_torch(wl, hw, *args, dn, ppu), want)
+
+
+def test_importing_the_dse_leaves_cuda_uninitialised(card):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = ("import torch, repro_torch.dse.batch_sweep, repro_torch.core, "
+            "repro_torch.dse\n"
+            "assert torch.cuda.is_available()\n"
+            "assert not torch.cuda.is_initialized()\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(src)))
+    assert res.returncode == 0, res.stderr

@@ -734,3 +734,10 @@ def test_port_imports_neither_jax_nor_repro_at_runtime():
             "repro_torch.train.train_lm", "repro_torch.data.pipeline",
             "repro_torch.ckpt.manager", "repro_torch.ft.straggler",
             "repro_torch.tree", "repro_torch.convert"} <= mods
+    # and the DSE scoring engine's
+    assert {f"repro_torch.core.{m}" for m in (
+        "affine", "workload", "dataflow", "cost", "perf_model", "mapper",
+        "fusion", "perf_model_torch", "mapper_batch")} <= mods
+    assert {"repro_torch.frontend.model_graph", "repro_torch.frontend.lower",
+            "repro_torch.dse.space", "repro_torch.dse.cache",
+            "repro_torch.dse.batch_sweep"} <= mods
