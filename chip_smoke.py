@@ -132,6 +132,25 @@ Phases, each of which stops the run with a non-zero exit on failure:
    difference logged); the cache's winners of every tile's first design
    held to ``best_mappings(engine="numpy")``; and the first tile prefilled
    again by the card and by the NumPy engine, each timed.
+10. the sharded entry points on a one-card ``DeviceMesh`` (``nccl`` at
+   world size 1 over an in-process store; the "fake" group of the dry run
+   in subprocesses):
+   a. serve: Mistral-NeMo-12B at full width and depth, its parameters and
+      decode state laid out by the sharding rules (``build_serve_step(cfg,
+      mesh).jit_with``) and a ``forward`` on the DTensors; ``generate`` with
+      phase 4a's prompts and new-token count through the mesh's captured
+      step, its tokens identical to phase 4a's and its K2 launches (replays
+      counted, and the forward's K2 prefill launches) equal to phase 4a's;
+      the replayed step's time beside phase 4a's;
+   b. train: ``build_train_step(cfg, mesh)`` at phase 8a's shape (4 of 40
+      layers, global batch 2 x 2048) with remat and bf16 moments, three
+      steps each way, the first loss within 1e-5 (relative) of the
+      unsharded step's in the same run; step times and peak memory;
+   c. dry run: ``python -m repro_torch.launch.dryrun`` on
+      mistral_nemo_12b x {train_4k, decode_32k} and jamba_1_5_large_398b x
+      long_500k on the 16x16 mesh of the "fake" group, three subprocesses
+      at once, each cell's status ``ok``; GB/dev, Tc, Tm and Tx logged
+      (predictions from operation counts against the H100's constants).
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -148,6 +167,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# what phase 4's serve runs gave, by config name, for phase 10 to hold its
+# sharded run to: prompts and tokens of generate, launch counts, the
+# replayed step's median ms
+SERVED: dict = {}
 
 F32_TOL, BF16_TOL = 2e-4, 3e-2
 SCAN_TOL = 1e-4             # tests/test_kernels.py's fp32 tolerance for scans
@@ -1326,6 +1350,9 @@ def main() -> int:
     # ---- 9. DSE scoring engine ---------------------------------------------
     _dse(dev, smi)
 
+    # ---- 10. sharded entry points on a one-card mesh -------------------------
+    _sharded(dev, reset, launches)
+
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1428,10 +1455,15 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
             f"counted), K2 decode calls over more than one split "
             f"{decode_attention_cuda.split_launches}; tokens == the eager "
             "step's")
-        _step_times(cfg.name, params, lambda: TF.init_decode_state(
-            cfg, B, Tp + new, device=dev), build_serve_step(cfg),
+        replay_ms = _step_times(
+            cfg.name, params, lambda: TF.init_decode_state(
+                cfg, B, Tp + new, device=dev), build_serve_step(cfg),
             lambda p, st, t, pos: TF.decode_step(p, st, t, pos, cfg),
             prompts[:, 0], (), reset, launches, want_gen, weight_bytes)
+        SERVED[cfg.name] = dict(prompts=prompts, out=out, new=new,
+                                fwd_launches=fwd_launches,
+                                gen_launches=gen_launches,
+                                replay_ms=replay_ms, seed=seed, T=T)
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             "GiB")
         if then is not None:
@@ -1605,7 +1637,7 @@ def _greedy(step, params, state, prompts, new: int, *extra):
 
 
 def _step_times(name, params, new_state, step, eager, tok, extra, reset,
-                launches, want, weight_bytes, n: int = 10) -> None:
+                launches, want, weight_bytes, n: int = 10) -> float:
     """The captured serve step beside the eager one on a fresh state from
     ``new_state()`` (batch 4, generate's 40-position cache): ``step``'s
     first call (eager, then the capture) and two replays, then ``n``
@@ -1614,7 +1646,7 @@ def _step_times(name, params, new_state, step, eager, tok, extra, reset,
     ``torch.profiler``: its device-busy ms, and the idle share of a replay
     (1 - busy / the replays' median; the traced replay's own host clock,
     which tracing lengthens, is logged too).  Logged beside the
-    weight-read bound."""
+    weight-read bound.  Returns the replays' median ms."""
     import torch
 
     state = new_state()
@@ -1649,6 +1681,7 @@ def _step_times(name, params, new_state, step, eager, tok, extra, reset,
             if events else "no device event in the trace (device-busy time "
             "not measured)"))
     del state
+    return c
 
 
 def _whisper(cfg, seed, dev, gen, reset, launches) -> None:
@@ -2174,7 +2207,7 @@ def _train_consistency(dev, reset, no_launches) -> None:
                               dtype="float32")
     log(f"phase 8b {cfg.name} fp32 (TF32 off): a train step on the card "
         "against the CPU")
-    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0)
+    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0, "cpu")
 
     def run(device, accum=1):
         state = make_train_state(cfg, torch.Generator().manual_seed(0),
@@ -2465,6 +2498,239 @@ def _dse(dev, smi: str) -> None:
         + ", ".join(f"{w:.3f} / {d:.3f}" for w, d in times["numpy"]))
     log(f"phase 9 done in {time.perf_counter() - t_phase:.1f}s")
 
+
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the sharded entry points
+# ---------------------------------------------------------------------------
+
+# the dry run's cells on the card machine, (arch, shape), on pod16x16
+DRYRUN_CELLS = (("mistral_nemo_12b", "train_4k"),
+                ("mistral_nemo_12b", "decode_32k"),
+                ("jamba_1_5_large_398b", "long_500k"))
+SHARD_LOSS_RTOL = 1e-5
+
+
+def _sharded(dev, reset, launches) -> None:
+    """Phase 10: the dry run starts first (three subprocesses on the CPU,
+    the "fake" group), then 10a and 10b run on the card under one nccl
+    group of world size 1, then the dry run's records are read."""
+    import os
+    import tempfile
+
+    from repro_torch.launch.mesh import local_group, shape_mesh
+
+    t0 = time.perf_counter()
+    log("phase 10 sharded entry points on a one-card DeviceMesh (data=1, "
+        "model=1; nccl, world size 1, an in-process store)")
+    out_dir = tempfile.mkdtemp(prefix="dryrun_", dir=ROOT / ".chipscratch"
+                               if (ROOT / ".chipscratch").is_dir() else None)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out_dir], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for arch, shape in DRYRUN_CELLS]
+    try:
+        with local_group(str(dev)):
+            mesh = shape_mesh((1, 1), ("data", "model"), device_type="cuda")
+            _sharded_serve(dev, mesh, reset, launches)
+            _sharded_train(dev, mesh, reset)
+        _dryrun_records(procs, out_dir)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    log(f"phase 10 done in {time.perf_counter() - t0:.1f}s")
+
+
+def _sharded_serve(dev, mesh, reset, launches) -> None:
+    """10a: phase 4a again through the mesh's entry points."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve.engine import build_serve_step, generate
+
+    cfg = get_config("mistral_nemo_12b")
+    ref = SERVED[cfg.name]
+    L, prompts, new = cfg.n_layers, ref["prompts"], ref["new"]
+    B, Tp = prompts.shape
+    torch.cuda.reset_peak_memory_stats()
+    params = TF.init_params(cfg, torch.Generator(dev).manual_seed(
+        ref["seed"]), dev)
+    with torch.inference_mode():
+        step, dparams, dstate = build_serve_step(cfg, mesh=mesh).jit_with(
+            params, TF.init_decode_state(cfg, B, Tp + new, device=dev))
+        placements = {str(p) for p in dparams["layers"]["pos0"]["core"][
+            "wq"]["w"].placements}
+        log(f"10a {cfg.name} full width and depth on the mesh: params and "
+            f"state laid out as DTensors (wq {placements}); forward on the "
+            "DTensors, then generate through the mesh's captured step "
+            "(local tensors of the one-card mesh)")
+        tok = torch.randint(0, cfg.vocab_size, (1, 512), device=dev,
+                            dtype=torch.int32)
+        TF.forward(dparams, tok[:, :64], cfg, mesh=mesh)      # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        logits, _ = TF.forward(dparams, tok, cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        got = launches()
+        t0 = time.perf_counter()
+        plain_logits, _ = TF.forward(params, tok, cfg)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        diff = (logits.to_local() - plain_logits).abs().max().item()
+        if got != (L, 0, 0, 0, 0) or not torch.isfinite(
+                logits.to_local()).all():
+            fail(f"10a forward on the mesh: launches {got}, want "
+                 f"{(L, 0, 0, 0, 0)}, or non-finite logits")
+        log(f"  forward B=1 T=512 on the DTensors: {fwd_ms:.1f} ms (the "
+            f"unsharded forward {plain_ms:.1f} ms, {fwd_ms / plain_ms:.1f}x: "
+            "DTensor's dispatch on the host), "
+            f"launches {got} (K2 prefill once a layer, as phase 4a's "
+            f"{ref['fwd_launches'][0]} at T={ref['T']}), logits max |diff| "
+            f"against the unsharded forward {diff:.3e}")
+        del logits, plain_logits
+        generate(params, cfg, prompts, max_new=2, mesh=mesh)   # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, prompts, max_new=new, mesh=mesh)
+        torch.cuda.synchronize()
+        gen_ms = (time.perf_counter() - t0) * 1e3
+        got = launches()
+        if not torch.equal(out, ref["out"]):
+            fail("10a generate on the mesh: tokens differ from phase 4a's")
+        if got != ref["gen_launches"]:
+            fail(f"10a generate on the mesh: launches {got}, phase 4a's "
+                 f"{ref['gen_launches']}")
+        log(f"  generate B={B} prompt={Tp} new={new}: {gen_ms:.1f} ms, "
+            f"tokens identical to phase 4a's, launches {got} == phase 4a's "
+            "(replays counted)")
+        # the replayed step: the mesh's captured step, ten replays
+        pos = torch.zeros((), dtype=torch.int32, device=dev)
+        t = prompts[:, 0]
+        ms = []
+        for i in range(13):
+            t0 = time.perf_counter()
+            step(dparams, dstate, t, pos)
+            torch.cuda.synchronize()
+            pos += 1
+            if i >= 3:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(ms)
+        if step.captures != 1:
+            fail(f"10a: the mesh's step captured {step.captures} times, "
+                 "want 1")
+        log(f"  replayed step B={B} on the mesh: median {med:.3f} ms of "
+            f"{len(ms)} (host clock), phase 4a's {ref['replay_ms']:.3f} ms "
+            f"({med / ref['replay_ms']:.2f}x); captures {step.captures}, "
+            f"replays {step.replays}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, dparams, dstate, step
+    torch.cuda.empty_cache()
+
+
+def _sharded_train(dev, mesh, reset) -> None:
+    """10b: phase 8a's shape, unsharded and through the mesh."""
+    import gc
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import build_train_step, make_train_state
+
+    cfg = dataclasses.replace(get_config("mistral_nemo_12b"),
+                              n_periods=TRAIN_LAYERS, remat=True)
+    batch = batch_at(SyntheticLM(cfg.vocab_size, TRAIN_T, TRAIN_B, seed=0),
+                     0, dev)
+    log(f"10b {cfg.name} {TRAIN_LAYERS} of 40 layers, global batch "
+        f"{TRAIN_B} x {TRAIN_T}, remat, bf16 moments: three steps unsharded, "
+        "then three through build_train_step(cfg, mesh)")
+    res = {}
+    for name in ("unsharded", "mesh"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = make_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                 dev, opt_dtype=torch.bfloat16)
+        if name == "mesh":
+            step, state = build_train_step(cfg, mesh, lr=TRAIN_LR).jit_with(
+                state)
+        else:
+            step = build_train_step(cfg, lr=TRAIN_LR)
+        steps = 3
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        ms, losses = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        if any(ops.launch_counts()):
+            fail(f"10b {name}: kernel launches {ops.launch_counts()} in "
+                 "training, want none")
+        res[name] = dict(loss=losses[0], losses=losses, ms=ms,
+                         peak=torch.cuda.max_memory_allocated())
+        log(f"  {name}: step {', '.join(f'{t:.1f}' for t in ms)} ms, "
+            f"losses {', '.join(f'{x:.6f}' for x in losses)}, peak memory "
+            f"{res[name]['peak'] / 2**30:.2f} GiB")
+        del state, step, m
+    a, b = res["unsharded"]["loss"], res["mesh"]["loss"]
+    rel = abs(b - a) / abs(a)
+    if not rel <= SHARD_LOSS_RTOL:
+        fail(f"10b: the mesh step's loss {b:.8f} is {rel:.2e} from the "
+             f"unsharded {a:.8f}, want <= {SHARD_LOSS_RTOL}")
+    med = statistics.median(res["mesh"]["ms"][1:])
+    later = max(abs(x - y) / abs(y) for x, y in zip(
+        res["mesh"]["losses"][1:], res["unsharded"]["losses"][1:]))
+    log(f"  loss on the mesh {b:.8f} vs unsharded {a:.8f}: {rel:.2e} "
+        f"relative (<= {SHARD_LOSS_RTOL}); the later steps' losses "
+        f"{later:.2e} apart (after the updates); mesh step {med:.1f} ms vs "
+        f"unsharded {statistics.median(res['unsharded']['ms'][1:]):.1f} ms "
+        f"(medians after the first), peak "
+        f"{res['mesh']['peak'] / 2**30:.2f} vs "
+        f"{res['unsharded']['peak'] / 2**30:.2f} GiB")
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _dryrun_records(procs, out_dir) -> None:
+    """10c: waits for the dry run's subprocesses and reads their records."""
+    import os
+    for p, (arch, shape) in zip(procs, DRYRUN_CELLS):
+        out, _ = p.communicate(timeout=600)
+        path = os.path.join(out_dir, f"{arch}__{shape}__pod16x16.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            fail(f"10c dry run {arch} x {shape}: exit {p.returncode}\n"
+                 f"{out[-3000:]}")
+        rec = json.loads(Path(path).read_text())
+        if rec["status"] != "ok":
+            fail(f"10c dry run {arch} x {shape}: {rec['status']} "
+                 f"{rec.get('error')}")
+        m, r = rec["memory"], rec["roofline"]
+        gb = (m["argument_size"] + m["temp_size"] + m["output_size"]
+              - m["alias_size"]) / 1e9
+        log(f"10c dry run {arch} x {shape} pod16x16: ok in "
+            f"{rec['seconds']:.1f}s, {gb:.2f} GB/dev, Tc "
+            f"{r['t_compute_s'] * 1e3:.2f} ms, Tm {r['t_memory_s'] * 1e3:.2f}"
+            f" ms, Tx {r['t_collective_s'] * 1e3:.2f} ms -> "
+            f"{r['bottleneck']} (predictions from operation counts against "
+            "the H100's constants)")
 
 if __name__ == "__main__":
     sys.exit(main())

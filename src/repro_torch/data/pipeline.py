@@ -46,9 +46,10 @@ def _stream_seed(seed: int, step: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def batch_at(ds: SyntheticLM, step: int, device="cpu") -> dict:
+def batch_at(ds: SyntheticLM, step: int, device) -> dict:
     """Pure: (dataset spec, step) → the global batch {tokens (B, T) int32,
-    labels (B, T) int32[, prefix_embeds (B, P, d) fp32]} on ``device``."""
+    labels (B, T) int32[, prefix_embeds (B, P, d) fp32]} on ``device``
+    (no default: the caller says where its step runs)."""
     gen = torch.Generator().manual_seed(_stream_seed(ds.seed, step))
     B, T, V = ds.global_batch, ds.seq_len, ds.vocab_size
     u = torch.rand((B, T), generator=gen) * (1.0 - 1e-6) + 1e-6

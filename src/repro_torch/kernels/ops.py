@@ -16,12 +16,23 @@ ragged non-causal attention case is masked, where the reference's padding
 leaked weight onto zero keys; ``rwkv6`` takes any T, where the reference
 asserts ``T % 64 == 0`` above 64; ``ssm_scan`` takes any L and Dm, where
 the reference asserts multiples of its 128-wide blocks).
+
+A wrapper given DTensors (the model under a ``DeviceMesh``) runs on each
+device's shards (:func:`repro_torch.parallel.sharding.local_call`): the
+kernel, or on the CPU the plain version, takes the local tensors where the
+op is independent along every sharded dim — batch and heads for
+attention, batch and channels for the scan and the recurrence, rows and
+columns for the GEMM — and any other sharded dim is gathered first.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
 
+import torch
+from torch.distributed.tensor import DTensor
+
+from ..parallel.sharding import local_call
 from . import ref as R
 from .autotile import attention_tiles, gemm_tiles
 from .flash_attention import decode_attention_cuda, flash_attention_cuda
@@ -65,14 +76,24 @@ def gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     shapes alone) when the output tiles alone would not fill the SMs; the
     workspace comes from the caching allocator, so the call can be
     captured in a CUDA graph."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return local_call(gemm, (x, w), (("b", None), (None, "c")),
+                          (("b", "c"),))
     if x.device.type == "cpu":
         return R.gemm_ref(x, w)
     t = gemm_tiles(x.shape[0], w.shape[-1], x.shape[-1], x.element_size())
     return gemm_cuda(x, w, bm=t.bm, bn=t.bn, bk=t.bk)
 
 
+_BHTD = ("b", "c", None, None)
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None, offset: int = 0) -> torch.Tensor:
+    if isinstance(q, DTensor):
+        fn = functools.partial(flash_attention, causal=causal, window=window,
+                               softcap=softcap, scale=scale, offset=offset)
+        return local_call(fn, (q, k, v), (_BHTD,) * 3, (_BHTD,))
     if q.device.type == "cpu":
         return R.attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale, offset=offset)
@@ -93,6 +114,10 @@ def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
     splits from ``autotile.decode_splits``, never from ``pos``) and merges
     the partial softmaxes in a combine pass, so with a tensor ``pos`` the
     call can be captured in a CUDA graph."""
+    if isinstance(q, DTensor):
+        fn = functools.partial(decode_attention, window=window,
+                               softcap=softcap, scale=scale, pos=pos)
+        return local_call(fn, (q, k, v), (_BHTD,) * 3, (_BHTD,))
     if q.device.type == "cpu":
         return R.decode_attention_ref(q, k, v, window=window,
                                       softcap=softcap, scale=scale, pos=pos)
@@ -104,9 +129,21 @@ def decode_attention(q, k, v, *, window=None, softcap=None, scale=None,
                                  softcap=softcap, scale=scale)
 
 
+# the dims each argument's shards may split (see local_call): "b" batch,
+# "c" channels or heads
+SCAN_ROLES = (("b", None, "c"), ("b", None, "c"), ("c", None),
+              ("b", None, None), ("b", None, None), ("c",))
+SCAN_OUT_ROLES = (("b", None, "c"), ("b", "c", None))
+WKV_ROLES = (_BHTD,) * 4 + (("c", None),)
+WKV_OUT_ROLES = (_BHTD, _BHTD)
+
+
 def ssm_scan(x, dt, A, B, C, D) -> tuple[torch.Tensor, torch.Tensor]:
     """Mamba S6 scan: x/dt (Bt, L, Dm), A (Dm, N), B/C (Bt, L, N), D (Dm,)
     → (y (Bt, L, Dm) in x.dtype, h_last (Bt, Dm, N) fp32)."""
+    if isinstance(x, DTensor):
+        return local_call(ssm_scan, (x, dt, A, B, C, D), SCAN_ROLES,
+                          SCAN_OUT_ROLES)
     if x.device.type == "cpu":
         return R.selective_scan_ref(x, dt, A, B, C, D)
     return ssm_scan_cuda(x, dt, A, B, C, D)
@@ -115,6 +152,8 @@ def ssm_scan(x, dt, A, B, C, D) -> tuple[torch.Tensor, torch.Tensor]:
 def rwkv6(r, k, v, w, u) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 wkv: r/k/w (B, H, T, Dk), v (B, H, T, Dv), u (H, Dk) →
     (o (B, H, T, Dv) in r.dtype, S_last (B, H, Dk, Dv) fp32)."""
+    if isinstance(r, DTensor):
+        return local_call(rwkv6, (r, k, v, w, u), WKV_ROLES, WKV_OUT_ROLES)
     if r.device.type == "cpu":
         return R.rwkv6_ref(r, k, v, w, u)
     return rwkv6_cuda(r, k, v, w, u)

@@ -9,20 +9,76 @@ parameters and states.  ``backend`` "kernel" sends attention, the selective
 scan and the wkv recurrence through :mod:`repro_torch.kernels.ops` (the CUDA
 kernels on a card, the plain versions on the CPU); "ref" runs the plain
 versions on any device, as the reference's ``KB = "ref"`` does.
+
+``mesh`` (a ``DeviceMesh`` or None) is taken where the reference takes it.
+With a mesh the tensors are DTensors: attention's
+queries are laid out by the reference's constraint, the attention, scan
+and recurrence run on each device's shards (:func:`_local`), and the MoE
+takes :func:`_moe_fwd_shardmap` for 8192 tokens or more on a mesh of
+more than one device.  Without a mesh every path is as it was.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..kernels import ops
 from ..kernels import ref as R
+from ..parallel.sharding import is_sharded, local_call, with_constraint
 from .common import BlockSpec, ModelConfig, make_dense, rms_norm, rope
 
 BACKENDS = ("kernel", "ref")
+
+
+# per argument, the role of each dim for :func:`local_call`: "b" batch,
+# "c" heads or channels (the op is independent along both), None whole
+_BHTD = ("b", "c", None, None)
+_ATTN = dict(roles=(_BHTD,) * 3, out_roles=(_BHTD,))
+
+
+def _local(fn, args, roles, out_roles, **kw):
+    """``fn(*args, **kw)``, on each device's shards when the arguments are
+    DTensors (:func:`repro_torch.parallel.sharding.local_call`)."""
+    return local_call(functools.partial(fn, **kw) if kw else fn, args,
+                      roles, out_roles)
+
+
+def vocab_parallel_embed(tokens, table):
+    """``F.embedding(tokens, table)`` for a DTensor table (V, d): its d
+    gathered, its vocab split kept; each device looks up the tokens in its
+    slice of the vocabulary (zeros for the others'), and the partial rows
+    sum across the vocab's mesh dims.  (DTensor's own masked lookup
+    misreads tokens split over a mesh dim that also splits d.)"""
+    mesh = table.device_mesh
+    vdims = [i for i, pl in enumerate(table.placements)
+             if isinstance(pl, Shard) and pl.dim == 0]
+    table = table.redistribute(mesh, tuple(
+        Shard(0) if i in vdims else Replicate() for i in range(mesh.ndim)))
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    tok_pl = tuple(Replicate() if i in vdims else pl
+                   for i, pl in enumerate(tokens.placements))
+    tokens = tokens.redistribute(mesh, tok_pl)
+    t_loc = tokens.to_local().long()
+    w_loc = table.to_local(grad_placements=tuple(
+        Shard(0) if i in vdims else Partial() if isinstance(pl, Shard)
+        else Replicate() for i, pl in enumerate(tok_pl)))
+    V_loc, first = w_loc.shape[0], 0
+    for i in vdims:                                   # major mesh dim first
+        first = first * mesh.shape[i] + mesh.get_local_rank(i)
+    at = t_loc - first * V_loc
+    mine = (at >= 0) & (at < V_loc)
+    rows = F.embedding(at.clamp(0, V_loc - 1), w_loc) * mine[..., None]
+    out_pl = tuple(Partial() if i in vdims else pl
+                   for i, pl in enumerate(tok_pl))
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
 
 
 def _dense(gen, lead, d_in, d_out, cfg, device):
@@ -74,7 +130,7 @@ def _out(cfg: ModelConfig, p, x, o):
 
 
 def attn_fwd(cfg: ModelConfig, spec: BlockSpec, p, x, positions,
-             backend: str = "kernel"):
+             backend: str = "kernel", mesh=None):
     B, T, d = x.shape
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, h)
@@ -82,17 +138,20 @@ def attn_fwd(cfg: ModelConfig, spec: BlockSpec, p, x, positions,
     k = rope(k, positions, cfg.rope_theta)
     # (B, H, T, D) layout for the kernel
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    qh = with_constraint(qh, mesh, ("batch", "tensor", "none", "none"))
     kw = dict(causal=True, window=spec.window, softcap=cfg.attn_softcap)
     plain = backend == "ref" or x.device.type == "cpu"
     if plain and cfg.chunk_threshold and T >= cfg.chunk_threshold:
-        o = R.chunked_attention_ref(qh, kh, vh, kv_chunk=cfg.attn_kv_chunk,
-                                    **kw)
+        o = _local(R.chunked_attention_ref, (qh, kh, vh), **_ATTN,
+                   kv_chunk=cfg.attn_kv_chunk, **kw)
     elif backend == "ref":
-        o = R.attention_ref(qh, kh, vh, **kw)
+        o = _local(R.attention_ref, (qh, kh, vh), **_ATTN, **kw)
     else:
         # on a card the kernel takes every T
         o = ops.flash_attention(qh, kh, vh, **kw)
-    o = o.transpose(1, 2).reshape(B, T, cfg.n_heads * cfg.hd)
+    # contiguous before the merge of heads (the copy reshape makes anyway):
+    # DTensor's backward of that reshape is a view
+    o = o.transpose(1, 2).contiguous().reshape(B, T, cfg.n_heads * cfg.hd)
     return _out(cfg, p, x, o)
 
 
@@ -103,8 +162,34 @@ def attn_init_state(cfg: ModelConfig, batch: int, max_len: int, device,
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
+def _cache_write(cache, idx, new):
+    """``cache[:, :, idx] = new`` in place (cache (B, H, S, D), new (B, H,
+    1, D), idx (1,) int64).  A DTensor cache whose S is sharded (the
+    reference's ``seq`` fallback) is written on each device's slab: the
+    device that holds position ``idx`` takes the row, the others write
+    back what they hold, so nothing is gathered."""
+    if not isinstance(cache, DTensor):
+        return cache.index_copy_(2, idx, new)
+    mesh = cache.device_mesh
+    want = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == 2
+                 else pl for pl in cache.placements)
+    new = new if tuple(new.placements) == want else new.redistribute(
+        mesh, want)
+    local, S_loc = cache.to_local(), cache.to_local().shape[2]
+    start = 0
+    for i, pl in enumerate(cache.placements):
+        if isinstance(pl, Shard) and pl.dim == 2:   # major mesh dim first
+            start = start * mesh.shape[i] + mesh.get_local_rank(i)
+    at = idx - start * S_loc
+    mine = (at >= 0) & (at < S_loc)
+    at = at.clamp(0, S_loc - 1)
+    row = torch.where(mine, new.to_local(), local.index_select(2, at))
+    local.index_copy_(2, at, row)
+    return cache
+
+
 def attn_step(cfg: ModelConfig, spec: BlockSpec, p, x, state, pos,
-              backend: str = "kernel"):
+              backend: str = "kernel", mesh=None):
     """x (B, 1, d); ``state`` the KV cache filled up to ``pos`` (a 0-d int32
     tensor on x's device); returns (x, state).
 
@@ -118,12 +203,12 @@ def attn_step(cfg: ModelConfig, spec: BlockSpec, p, x, state, pos,
     q = rope(q, pvec, cfg.rope_theta)
     k = rope(k, pvec, cfg.rope_theta)
     idx = pos.reshape(1).long()
-    kc = state["k"].index_copy_(2, idx, k.transpose(1, 2))
-    vc = state["v"].index_copy_(2, idx, v.transpose(1, 2))
+    kc = _cache_write(state["k"], idx, k.transpose(1, 2))
+    vc = _cache_write(state["v"], idx, v.transpose(1, 2))
     qh = q.transpose(1, 2).contiguous()
     kw = dict(window=spec.window, softcap=cfg.attn_softcap, pos=pos)
     if backend == "ref":
-        o = R.decode_attention_ref(qh, kc, vc, **kw)
+        o = _local(R.decode_attention_ref, (qh, kc, vc), **_ATTN, **kw)
     else:
         o = ops.decode_attention(qh, kc, vc, **kw)
     o = o.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.hd)
@@ -168,7 +253,7 @@ def _act(cfg):
     return lambda t: F.gelu(t, approximate="tanh")
 
 
-def mlp_fwd(cfg: ModelConfig, p, x):
+def mlp_fwd(cfg: ModelConfig, p, x, mesh=None):
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     up = h @ p["up"]["w"]
     if cfg.glu:
@@ -212,15 +297,95 @@ def moe_capacity(cfg: ModelConfig, n_tok: int) -> int:
     return max(1, min(C, n_tok))
 
 
-def moe_fwd(cfg: ModelConfig, p, x):
+def moe_fwd(cfg: ModelConfig, p, x, mesh=None):
     """Token-choice top-k with capacity dispatch: x (B, T, d) → (x +
     moe(x), router aux loss), the aux returned where the reference puts it
-    on the ``moe_fwd.aux`` side channel.  The reference's shard_map dispatch
-    (``_moe_fwd_shardmap``) needs a mesh, which the port has not yet."""
+    on the ``moe_fwd.aux`` side channel.  With a mesh of more than one
+    device and at least 8192 tokens the dispatch runs on each device's
+    tokens (:func:`_moe_fwd_shardmap`); on one device that path is this
+    one."""
     B, T, d = x.shape
+    if is_sharded(mesh) and B * T >= 8192:
+        return _moe_fwd_shardmap(cfg, p, x, mesh)
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    if isinstance(h, DTensor):
+        # the dispatch on every device over all tokens and whole weights
+        # (GSPMD's replicated fallback for the scatter)
+        paths, leaves = zip(*_moe_leaves(p))
+        y, aux = local_call(
+            lambda ht, *ws: _moe_local(cfg, _moe_tree(paths, ws), ht),
+            (h.reshape(B * T, d), *leaves),
+            ((None, None),) + tuple((None,) * w.ndim for w in leaves),
+            ((None, None), ()))
+        return x + y.reshape(B, T, d), aux
     y, aux = _moe_local(cfg, p, h.reshape(B * T, d))
     return x + y.reshape(B, T, d), aux
+
+
+def _moe_leaves(p):
+    """(path, tensor) of the MoE weights that :func:`_moe_local` reads."""
+    out = [("router/w", p["router"]["w"])]
+    out += [(f"experts/{k}", v) for k, v in p["experts"].items()]
+    if "shared" in p:
+        out += [(f"shared/{k}/w", v["w"]) for k, v in p["shared"].items()]
+    return out
+
+
+def _moe_tree(names, leaves) -> dict:
+    tree: dict = {}
+    for name, t in zip(names, leaves):
+        *keys, last = name.split("/")
+        node = tree
+        for k in keys:
+            node = node.setdefault(k, {})
+        node[last] = t
+    return tree
+
+
+def _moe_fwd_shardmap(cfg: ModelConfig, p, x, mesh):
+    """The reference's ``shard_map`` dispatch on DTensors: the MoE weights
+    replicated (their all-gather), the tokens split over the batch axes
+    and then, by the device's coordinate, over ``model`` when (Bl·Tl) is a
+    multiple of its size M and at least M; :func:`_moe_local` on each
+    device's tokens, whose capacity then counts local tokens (with drops
+    the result differs from the unsharded one, as the reference's does);
+    the outputs all-gathered over ``model``, or averaged over it when the
+    tokens were not split; aux averaged over every axis."""
+    d = x.shape[-1]
+    names = mesh.mesh_dim_names
+    h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
+    # each device's gradient of what it holds whole is a partial sum
+    partial = (Partial(),) * mesh.ndim
+    paths, leaves = zip(*_moe_leaves(p))
+    w = _moe_tree(paths, [with_constraint(t, mesh, ("none",) * t.ndim)
+                          .to_local(grad_placements=partial)
+                          for t in leaves])
+    batch = tuple(i for i, a in enumerate(names) if a in ("pod", "data"))
+    mdl = names.index("model") if "model" in names else None
+    tok_pl = tuple(Shard(0) if i in batch else Replicate()
+                   for i in range(mesh.ndim))
+    h_loc = h.redistribute(mesh, tok_pl).to_local(grad_placements=tuple(
+        Shard(0) if i in batch else Partial() for i in range(mesh.ndim)))
+    Bl, Tl, _ = h_loc.shape
+    toks = h_loc.reshape(Bl * Tl, d)
+    M = mesh.shape[mdl] if mdl is not None else 1
+    split = mdl is not None and (Bl * Tl) % M == 0 and Bl * Tl >= M
+    if split:
+        per = (Bl * Tl) // M
+        i = mesh.get_local_rank(mdl)
+        toks = toks[i * per:(i + 1) * per]
+    y_my, aux = _moe_local(cfg, w, toks)
+    # the local results as one DTensor over the (B·T, d) tokens, then laid
+    # out as the tokens came in
+    last = Shard(0) if split else Partial("avg")
+    pl = tuple(last if i == mdl else Shard(0) if i in batch
+               else Replicate() for i in range(mesh.ndim))
+    y = DTensor.from_local(y_my, mesh, pl, run_check=False)
+    y = y.redistribute(mesh, tok_pl).to_local().reshape(Bl, Tl, d)
+    y = DTensor.from_local(y, mesh, tok_pl, run_check=False)
+    aux = DTensor.from_local(aux, mesh, (Partial("avg"),) * mesh.ndim,
+                             run_check=False)
+    return x + y, aux.redistribute(mesh, (Replicate(),) * mesh.ndim)
 
 
 def _moe_local(cfg: ModelConfig, p, ht):
@@ -332,7 +497,10 @@ def _mamba_dbc(cfg: ModelConfig, p, xs):
     return (_softplus(dt @ p["dt_proj"]["w"] + p["dt_proj"]["bias"]), Bc, Cc)
 
 
-def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
+_SCAN = dict(roles=ops.SCAN_ROLES, out_roles=ops.SCAN_OUT_ROLES)
+
+
+def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel", mesh=None):
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     xs, z = (h @ p["in_proj"]["w"]).chunk(2, dim=-1)
     xs = _silu(_causal_conv(xs, p["conv1d"]["w"]))
@@ -345,7 +513,7 @@ def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
     # (the reference chunks above ``chunk_threshold`` only to rematerialize
     # each chunk for its backward pass)
     if backend == "ref":
-        y, _ = R.selective_scan_ref(*args)
+        y, _ = _local(R.selective_scan_ref, args, **_SCAN)
     else:
         y, _ = ops.ssm_scan(*args)
     return x + (y * _silu(z)) @ p["out_proj"]["w"]
@@ -361,7 +529,7 @@ def mamba_init_state(cfg: ModelConfig, batch: int, device, lead=()) -> dict:
     }
 
 
-def mamba_step(cfg: ModelConfig, p, x, state):
+def mamba_step(cfg: ModelConfig, p, x, state, mesh=None):
     """x (B, 1, d); ``state`` {conv (B, K−1, di) in the model dtype, ssm
     (B, di, N) fp32}; returns (x, state).  A plain step with no kernel, dt
     kept in fp32 (the forward hands the scan dt in the model dtype, so bf16
@@ -440,7 +608,10 @@ def _channel_mix(p, h2, h2prev):
     return (kk @ p["cv"]["w"]) * _sigmoid(xr @ p["cr"]["w"])
 
 
-def rwkv_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
+_WKV = dict(roles=ops.WKV_ROLES, out_roles=ops.WKV_OUT_ROLES)
+
+
+def rwkv_fwd(cfg: ModelConfig, p, x, backend: str = "kernel", mesh=None):
     B, T, d = x.shape
     hd = cfg.rwkv_head_dim
     H = d // hd
@@ -458,7 +629,7 @@ def rwkv_fwd(cfg: ModelConfig, p, x, backend: str = "kernel"):
     # ``chunk_threshold`` (the reference chunks to rematerialize each chunk
     # for its backward pass, which this forward-only port has not).
     if backend == "ref":
-        o, _ = R.rwkv6_ref(*args)
+        o, _ = _local(R.rwkv6_ref, args, **_WKV)
     else:
         o, _ = ops.rwkv6(*args)
     o = o.transpose(1, 2).reshape(B, T, d) * _silu(g)
@@ -480,7 +651,7 @@ def rwkv_init_state(cfg: ModelConfig, batch: int, device, lead=()) -> dict:
     }
 
 
-def rwkv_step(cfg: ModelConfig, p, x, state):
+def rwkv_step(cfg: ModelConfig, p, x, state, mesh=None):
     """x (B, 1, d); ``state`` {tshift, cshift (B, d) in the model dtype,
     wkv (B, H, hd, hd) fp32}; returns (x, state).  A plain recurrence step
     with no kernel, with w kept in fp32.

@@ -11,19 +11,23 @@ which masks the ragged 1500-frame key range itself.  Layers are stacked
 over their count (``enc`` over ``n_enc_layers``, ``dec`` over
 ``n_layers``) with the reference's keys and shapes, so
 :func:`repro_torch.convert.params_from_jax` maps one tree onto the other.
-Logits are in the model dtype, as the reference returns them.
+Logits are in the model dtype, as the reference returns them.  ``mesh``
+runs the model on DTensors over it, as in
+:mod:`repro_torch.models.transformer`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
 from ..kernels import ref as R
+from ..parallel.sharding import sharded_region
 from . import blocks as B
 from .common import BlockSpec, ModelConfig, check_device, make_dense, rms_norm
-from .transformer import _check_backend, _period, _unbind
+from .transformer import _check_backend, _period, _tokens_in, _unbind
 
 __all__ = ["init_params_encdec", "forward_encdec", "encode",
            "loss_fn_encdec", "init_decode_state_encdec",
@@ -76,10 +80,11 @@ def _attend(p, x, q, k, v, backend: str):
     Bsz, T, _ = x.shape
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if backend == "ref":
-        o = R.attention_ref(qh, kh, vh, causal=False)
+        o = B._local(R.attention_ref, (qh, kh, vh), **B._ATTN, causal=False)
     else:
         o = ops.flash_attention(qh, kh, vh, causal=False)
-    return x + o.transpose(1, 2).reshape(Bsz, T, -1) @ p["wo"]["w"]
+    return (x + o.transpose(1, 2).contiguous().reshape(Bsz, T, -1)
+            @ p["wo"]["w"])
 
 
 def _self_attn_enc(cfg: ModelConfig, p, x, backend: str):
@@ -100,15 +105,29 @@ def _cross_attn(cfg: ModelConfig, p, x, enc_out, backend: str):
                    B._split_heads(v, cfg.n_kv_heads, hd), backend)
 
 
-def encode(params, enc_embeds, cfg: ModelConfig, backend: str = "kernel"):
+def _embed_rows(params, tokens, index: bool = False):
+    """The token embeddings: ``F.embedding`` (or indexing, the decode
+    step's form), the vocab-parallel lookup on a DTensor table."""
+    table = params["embed"]["table"]
+    if isinstance(table, DTensor):
+        return B.vocab_parallel_embed(tokens, table)
+    if index:
+        return table[tokens.long()]
+    return F.embedding(tokens.long(), table)
+
+
+def encode(params, enc_embeds, cfg: ModelConfig, backend: str = "kernel",
+           mesh=None):
     """enc_embeds (B, T_enc, d), T_enc <= enc_seq_len → (B, T_enc, d)."""
     _check_backend(backend)
     T = enc_embeds.shape[1]
-    x = enc_embeds.to(cfg.torch_dtype) + params["enc_pos"][None, :T]
-    for p in _unbind(params["enc"], cfg.n_enc_layers):
-        x = _self_attn_enc(cfg, p["self"], x, backend)
-        x = B.mlp_fwd(cfg, p["ffn"], x)
-    return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
+    with sharded_region(mesh):
+        x = (_tokens_in(enc_embeds, mesh).to(cfg.torch_dtype)
+             + params["enc_pos"][None, :T])
+        for p in _unbind(params["enc"], cfg.n_enc_layers):
+            x = _self_attn_enc(cfg, p["self"], x, backend)
+            x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
+        return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
 def _logits(params, x, cfg: ModelConfig):
@@ -117,36 +136,38 @@ def _logits(params, x, cfg: ModelConfig):
 
 
 def forward_encdec(params, tokens, enc_embeds, cfg: ModelConfig,
-                   backend: str = "kernel"):
+                   backend: str = "kernel", mesh=None):
     """tokens (B, T) int, enc_embeds (B, T_enc, d) → logits (B, T, V) in
     the model dtype."""
-    enc_out = encode(params, enc_embeds, cfg, backend)
-    x = F.embedding(tokens.long(), params["embed"]["table"]).to(
-        cfg.torch_dtype)
-    Bsz, T, _ = x.shape
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=x.device).expand(Bsz, T)
-    for p in _unbind(params["dec"], cfg.n_layers):
-        x = B.attn_fwd(cfg, _SELF, p["self"], x, positions, backend)
-        x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
-        x = B.mlp_fwd(cfg, p["ffn"], x)
-    return _logits(params, x, cfg)
+    with sharded_region(mesh):
+        enc_out = encode(params, enc_embeds, cfg, backend, mesh)
+        x = _embed_rows(params, _tokens_in(tokens, mesh)).to(cfg.torch_dtype)
+        Bsz, T, _ = x.shape
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=x.device).expand(Bsz, T)
+        for p in _unbind(params["dec"], cfg.n_layers):
+            x = B.attn_fwd(cfg, _SELF, p["self"], x, positions, backend, mesh)
+            x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
+            x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
+        return _logits(params, x, cfg)
 
 
-def loss_fn_encdec(params, batch, cfg: ModelConfig, backend: str = "ref"):
+def loss_fn_encdec(params, batch, cfg: ModelConfig, backend: str = "ref",
+                   mesh=None):
     """batch: {tokens, labels (< 0 masked), enc_embeds}.  CE through the
     fp32 ``log_softmax`` of the logits, as the reference computes it here
     (its decoder LM's loss takes the logsumexp form).  Returns (ce,
     {"ce", "aux": 0}); no remat, as in the reference."""
-    logits = forward_encdec(params, batch["tokens"], batch["enc_embeds"],
-                            cfg, backend)
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    mask = labels >= 0
-    ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    loss = -(ll * mask).sum() / mask.sum().clamp_min(1)
-    return loss, {"ce": loss, "aux": torch.zeros((), dtype=torch.float32,
-                                                 device=loss.device)}
+    with sharded_region(mesh):
+        logits = forward_encdec(params, batch["tokens"], batch["enc_embeds"],
+                                cfg, backend, mesh)
+        labels = _tokens_in(batch["labels"], mesh).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        mask = labels >= 0
+        ll = logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        loss = -(ll * mask).sum() / mask.sum().clamp_min(1)
+        return loss, {"ce": loss, "aux": torch.zeros(
+            (), dtype=torch.float32, device=loss.device)}
 
 
 def init_decode_state_encdec(cfg: ModelConfig, batch: int, max_len: int,
@@ -160,18 +181,22 @@ def init_decode_state_encdec(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step_encdec(params, state, token, pos, enc_out, cfg: ModelConfig,
-                       backend: str = "kernel"):
+                       backend: str = "kernel", mesh=None):
     """token (B,) int; ``pos`` an int or a 0-d int32 tensor on the token's
     device; enc_out (B, T_enc, d) from :func:`encode`.  Returns (logits
     (B, V) in the model dtype, state); the caches are updated in place."""
     _check_backend(backend)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int32, device=token.device)
-    x = params["embed"]["table"][token.long()][:, None].to(cfg.torch_dtype)
-    for i in range(cfg.n_layers):
-        p = _period(params["dec"], i)
-        cache = {"k": state["k"][i], "v": state["v"][i]}   # views
-        x, _ = B.attn_step(cfg, _SELF, p["self"], x, cache, pos, backend)
-        x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
-        x = B.mlp_fwd(cfg, p["ffn"], x)
-    return _logits(params, x[:, 0], cfg), state
+    with sharded_region(mesh):
+        x = _embed_rows(params, _tokens_in(token, mesh), index=True)[
+            :, None].to(cfg.torch_dtype)
+        enc_out = _tokens_in(enc_out, mesh)
+        for i in range(cfg.n_layers):
+            p = _period(params["dec"], i)
+            cache = {"k": state["k"][i], "v": state["v"][i]}   # views
+            x, _ = B.attn_step(cfg, _SELF, p["self"], x, cache, pos, backend,
+                               mesh)
+            x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
+            x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
+        return _logits(params, x[:, 0], cfg), state

@@ -12,6 +12,14 @@ leaf by leaf.  The period loop is a Python loop (PyTorch runs eagerly);
 with ``cfg.remat`` each period of a forward that records gradients is
 rematerialized in the backward pass (the reference's ``jax.checkpoint``
 with ``nothing_saveable``).
+
+``mesh`` (a ``DeviceMesh``) makes the model run on DTensors over it, as
+the reference runs under GSPMD: the parameters (and decode state) come in
+laid out by :mod:`repro_torch.parallel.sharding`'s rules, token inputs are
+laid out on ``batch``, and the reference's sharding constraints stand at
+its four points here (the embedded input, each period's output, the
+logits, the decode step's embedded token) and in the blocks.  With
+``mesh=None`` nothing of this runs.
 """
 
 from __future__ import annotations
@@ -21,8 +29,10 @@ import struct
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.sharding import distribute, sharded_region, with_constraint
 from . import blocks as B
 from .common import ModelConfig, check_device, make_dense, rms_norm, softcap
 
@@ -126,11 +136,22 @@ def _rounded(v: float, dtype: torch.dtype) -> float:
     return v
 
 
+def _tokens_in(tokens, mesh):
+    """Token inputs laid out on ``batch`` (the reference's jit input
+    sharding); as they are without a mesh or when already DTensors."""
+    if mesh is None or isinstance(tokens, DTensor):
+        return tokens
+    return distribute(tokens, mesh, ("batch",) + ("none",) * (tokens.ndim - 1))
+
+
 def _embed(params, tokens, cfg: ModelConfig):
     # F.embedding, not indexing: its backward sums a row's gradients in a
     # fixed order (indexing's accumulates with atomics on the CPU)
-    x = F.embedding(tokens.long(), params["embed"]["table"]).to(
-        cfg.torch_dtype)
+    table = params["embed"]["table"]
+    if isinstance(table, DTensor):
+        x = B.vocab_parallel_embed(tokens, table).to(cfg.torch_dtype)
+    else:
+        x = F.embedding(tokens.long(), table).to(cfg.torch_dtype)
     if cfg.scale_embeddings:
         # the factor rounded to the model dtype first, as the reference
         # does; x times a model-dtype scalar rounds once from the exact
@@ -139,75 +160,105 @@ def _embed(params, tokens, cfg: ModelConfig):
     return x
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, mesh=None, logical=None):
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     head = (params["embed"]["table"].T if cfg.tie_embeddings
             else params["lm_head"]["w"])
-    return softcap((x @ head.to(x.dtype)).float(), cfg.final_softcap)
+    logits = x @ head.to(x.dtype)
+    if logical is not None:
+        # keep the (B, T, V) tensor vocab-sharded, as the reference does
+        logits = with_constraint(logits, mesh, logical)
+    return softcap(logits.float(), cfg.final_softcap)
 
 
-def _period_fwd(cfg: ModelConfig, pp, x, aux, positions, backend: str):
+def _period_fwd(cfg: ModelConfig, pp, x, aux, positions, backend: str,
+                mesh=None):
     """One period of the layer pattern: (x, aux) → (x, aux + its MoE aux
     losses, added layer by layer)."""
     for i, spec in enumerate(cfg.layer_pattern):
         p = pp[f"pos{i}"]
         if spec.kind == "rwkv":   # time mix and channel mix in one
-            x = B.rwkv_fwd(cfg, p["core"], x, backend)
+            x = B.rwkv_fwd(cfg, p["core"], x, backend, mesh)
             continue
         if spec.kind == "mamba":
-            x = B.mamba_fwd(cfg, p["core"], x, backend)
+            x = B.mamba_fwd(cfg, p["core"], x, backend, mesh)
         else:
-            x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend)
+            x = B.attn_fwd(cfg, spec, p["core"], x, positions, backend, mesh)
         if spec.moe:
-            x, a = B.moe_fwd(cfg, p["ffn"], x)
+            x, a = B.moe_fwd(cfg, p["ffn"], x, mesh)
             aux = aux + a
         else:
-            x = B.mlp_fwd(cfg, p["ffn"], x)
-    return x, aux
+            x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
+    # the sequence-parallel residual stream (Megatron-SP), as the
+    # reference constrains its scan carry
+    return with_constraint(x, mesh, ("batch", "seq_model", "none")), aux
 
 
 def forward(params, tokens, cfg: ModelConfig, prefix_embeds=None,
-            backend: str = "kernel"):
+            backend: str = "kernel", mesh=None):
     """tokens (B, T) int; ``prefix_embeds`` an optional (B, P, d) prefix
     of patch or frame embeddings, put before the (scaled) token embeddings.
     Returns fp32 logits (B, P + T, V) and the MoE aux loss summed over
     layers (a 0-d fp32 tensor, 0 without MoE layers).  With ``cfg.remat``
     and gradients recorded, each period keeps only its input for the
-    backward pass and runs again there; the numbers are the same."""
+    backward pass and runs again there; the numbers are the same.  With a
+    ``mesh`` the logits are a DTensor."""
     check_supported(cfg)
     _check_backend(backend)
-    x = _embed(params, tokens, cfg)
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    Bsz, T, _ = x.shape
-    positions = torch.arange(T, dtype=torch.int32,
-                             device=x.device).expand(Bsz, T)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    for pp in _unbind(params["layers"], cfg.n_periods):
-        if remat:
-            x, aux = checkpoint(_period_fwd, cfg, pp, x, aux, positions,
-                                backend, use_reentrant=False)
-        else:
-            x, aux = _period_fwd(cfg, pp, x, aux, positions, backend)
-    return _logits(params, x, cfg), aux
+    with sharded_region(mesh):
+        x = _embed(params, _tokens_in(tokens, mesh), cfg)
+        if prefix_embeds is not None:
+            x = torch.cat([_tokens_in(prefix_embeds, mesh).to(x.dtype), x],
+                          dim=1)
+        Bsz, T, _ = x.shape
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=x.device).expand(Bsz, T)
+        x = with_constraint(x, mesh, ("batch", "none", "none"))
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for pp in _unbind(params["layers"], cfg.n_periods):
+            if remat:
+                x, aux = checkpoint(_period_fwd, cfg, pp, x, aux, positions,
+                                    backend, mesh, use_reentrant=False)
+            else:
+                x, aux = _period_fwd(cfg, pp, x, aux, positions, backend,
+                                     mesh)
+        return _logits(params, x, cfg, mesh, ("batch", "none", "vocab")), aux
 
 
-def loss_fn(params, batch, cfg: ModelConfig, backend: str = "ref"):
+def loss_fn(params, batch, cfg: ModelConfig, backend: str = "ref",
+            mesh=None):
     """Next-token cross-entropy.  ``batch``: {tokens (B, T), labels (B, T)
     (< 0 masked)[, prefix_embeds (B, P, d)]}; the prefix's rows are
     dropped.  CE is ``logsumexp(logits) − logits[label]``, so the (B, T, V)
     log-probabilities are never made.  Returns (ce + aux, {"ce", "aux"}).
     ``backend`` "ref" by default: the reference trains on its plain path
     (``KB = "ref"``), and the kernels have no backward pass."""
-    logits, aux = forward(params, batch["tokens"], cfg,
-                          batch.get("prefix_embeds"), backend=backend)
-    labels = batch["labels"].long()
+    with sharded_region(mesh):
+        logits, aux = forward(params, batch["tokens"], cfg,
+                              batch.get("prefix_embeds"), backend=backend,
+                              mesh=mesh)
+        return _ce(logits, _tokens_in(batch["labels"], mesh), aux)
+
+
+def _label_logit(logits, labels):
+    """logits[..., label]: a gather, or on vocab-sharded DTensor logits a
+    masked sum over the vocabulary, which each device does on its slice
+    (the sum of one logit and zeros, so the same number; DTensor's own
+    vocab-parallel gather misreads labels split over a mesh dim)."""
+    if not isinstance(logits, DTensor):
+        return logits.gather(-1, labels[..., None])[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(labels[..., None] == vocab, logits, 0.0).sum(-1)
+
+
+def _ce(logits, labels, aux):
+    labels = labels.long()
     P = logits.shape[1] - labels.shape[1]
     if P:
         logits = logits[:, P:]
     lse = torch.logsumexp(logits, dim=-1)                     # (B, T)
-    ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    ll = _label_logit(logits, labels.clamp_min(0))
     mask = labels >= 0
     loss = ((lse - ll) * mask).sum() / mask.sum().clamp_min(1)
     return loss + aux, {"ce": loss, "aux": aux}
@@ -237,7 +288,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_step(params, state, token, pos, cfg: ModelConfig,
-                backend: str = "kernel"):
+                backend: str = "kernel", mesh=None):
     """token (B,) int; ``pos`` an int or a 0-d int32 tensor on the token's
     device.  Returns (logits (B, V) fp32, state); the state's caches and
     recurrent states are updated in place.  The MoE aux loss is dropped, as
@@ -246,21 +297,24 @@ def decode_step(params, state, token, pos, cfg: ModelConfig,
     _check_backend(backend)
     if not isinstance(pos, torch.Tensor):
         pos = torch.full((), pos, dtype=torch.int32, device=token.device)
-    x = _embed(params, token, cfg)[:, None]
-    for per in range(cfg.n_periods):
-        pp = _period(params["layers"], per)
-        st = _period(state, per)
-        for i, spec in enumerate(cfg.layer_pattern):
-            p, s = pp[f"pos{i}"], st[f"pos{i}"]
-            if spec.kind == "rwkv":
-                x, _ = B.rwkv_step(cfg, p["core"], x, s)
-                continue
-            if spec.kind == "mamba":
-                x, _ = B.mamba_step(cfg, p["core"], x, s)
-            else:
-                x, _ = B.attn_step(cfg, spec, p["core"], x, s, pos, backend)
-            if spec.moe:
-                x, _ = B.moe_fwd(cfg, p["ffn"], x)
-            else:
-                x = B.mlp_fwd(cfg, p["ffn"], x)
-    return _logits(params, x[:, 0], cfg), state
+    with sharded_region(mesh):
+        x = _embed(params, _tokens_in(token, mesh), cfg)[:, None]
+        x = with_constraint(x, mesh, ("batch", "none", "none"))
+        for per in range(cfg.n_periods):
+            pp = _period(params["layers"], per)
+            st = _period(state, per)
+            for i, spec in enumerate(cfg.layer_pattern):
+                p, s = pp[f"pos{i}"], st[f"pos{i}"]
+                if spec.kind == "rwkv":
+                    x, _ = B.rwkv_step(cfg, p["core"], x, s, mesh)
+                    continue
+                if spec.kind == "mamba":
+                    x, _ = B.mamba_step(cfg, p["core"], x, s, mesh)
+                else:
+                    x, _ = B.attn_step(cfg, spec, p["core"], x, s, pos,
+                                       backend, mesh)
+                if spec.moe:
+                    x, _ = B.moe_fwd(cfg, p["ffn"], x, mesh)
+                else:
+                    x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
+        return _logits(params, x[:, 0], cfg), state

@@ -10,6 +10,10 @@ donation of the state, where the reference returns new arrays), one slice
 of at most ``_CHUNK`` elements at a time, so that a 671M-element embedding
 needs no full-size fp32 temporaries.  Element-wise arithmetic does not
 depend on the slicing.
+
+DTensor parameters (the train step under a mesh) are updated on each
+device's shards, their moments laid out as they are; the global norm sums
+every shard once (DTensor's reduction of the per-leaf sums).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import tree_leaves, tree_map
 
@@ -44,6 +49,14 @@ def adamw_init(params) -> AdamWState:
                       tree_map(zeros, params), tree_map(zeros, params))
 
 
+def local(t):
+    """A DTensor's own local tensor (outside autograd), else ``t``."""
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            return t.to_local()
+    return t
+
+
 def _flat_chunks(*ts):
     """Matching slices of at most ``_CHUNK`` elements of the flattened
     tensors (the first ones written in place, so contiguous)."""
@@ -58,6 +71,9 @@ def _global_norm(grads) -> torch.Tensor:
     leaves = tree_leaves(grads)
     sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
+        if isinstance(g, DTensor):
+            sq = sq + g.float().square().sum().full_tensor()
+            continue
         for (gc,) in _flat_chunks(g):
             sq = sq + gc.float().square().sum()
     return sq.sqrt()
@@ -87,7 +103,7 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
         gnorm = _global_norm(grads)
         scale = _clip_scale(gnorm, max_grad_norm)
         state.step.add_(1)
-        stepf = state.step.float()
+        stepf = local(state.step).float()
 
         def one_minus_pow(b):
             base = torch.full((), b, dtype=torch.float32, device=stepf.device)
@@ -96,6 +112,10 @@ def adamw_update(params, grads, state: AdamWState, lr, *, b1=0.9, b2=0.95,
         bc1, bc2 = one_minus_pow(b1), one_minus_pow(b2)
         for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                               tree_leaves(state.mu), tree_leaves(state.nu)):
+            if isinstance(p, DTensor):
+                if tuple(g.placements) != tuple(p.placements):
+                    g = g.redistribute(p.device_mesh, p.placements)
+                p, g, m, v = (local(t) for t in (p, g, m, v))
             if not all(t.is_contiguous() for t in (p, m, v)):
                 raise ValueError("adamw_update writes parameters and moments "
                                  "in place: they must be contiguous")

@@ -1,6 +1,16 @@
-"""Batched serving on one device: teacher-forced prefill + greedy decode
-(``repro.serve.engine``'s counterpart with ``mesh=None``; the port has no
-sharding yet).
+"""Batched serving: teacher-forced prefill + greedy decode, with the KV
+caches and recurrent states sharded on a ``DeviceMesh`` when one is given
+(``repro.serve.engine``'s counterpart).
+
+Cache sharding is declarative, as in the reference:
+
+    KV cache (periods, B, Hkv, S, hd)
+        → ("none", "batch", "tensor", "seq", "none")
+
+with the divisibility fallback: kv heads that do not divide the model axis
+fall back to a sequence-sharded cache (each device holds an S/|model|
+slab, written in place where the position falls, and gathered for the
+attention).
 
 The reference compiles its step once, ``jax.jit(step,
 donate_argnums=(1,))``, and dispatches a whole step at a time.  Here, on a
@@ -22,12 +32,17 @@ from dataclasses import dataclass
 
 import torch
 
+from torch.distributed.tensor import DTensor
+
 from ..kernels import ops
 from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig
+from ..parallel.sharding import (distribute_tree, logical_to_spec,
+                                 shard_params_spec)
 
-__all__ = ["ServeConfig", "CapturedStep", "build_serve_step", "generate"]
+__all__ = ["ServeConfig", "CapturedStep", "build_serve_step", "generate",
+           "state_sharding_spec"]
 
 
 @dataclass(frozen=True)
@@ -35,6 +50,49 @@ class ServeConfig:
     batch: int
     max_len: int
     temperature: float = 0.0
+
+
+_STATE_LOGICAL = {
+    ("k",): ("none", "batch", "tensor", "seq", "none"),
+    ("v",): ("none", "batch", "tensor", "seq", "none"),
+    ("conv",): ("none", "batch", "none", "tensor"),
+    ("ssm",): ("none", "batch", "tensor", "none"),
+    ("wkv",): ("none", "batch", "tensor", "none", "none"),
+    ("tshift",): ("none", "batch", "none"),
+    ("cshift",): ("none", "batch", "none"),
+}
+
+
+def _state_logical(name, ndim: int) -> tuple[str, ...]:
+    logical = _STATE_LOGICAL.get((name,), ("none",) * ndim)
+    if len(logical) != ndim:
+        logical = (("none",) * (ndim - len(logical)) + tuple(logical))
+        logical = logical[-ndim:]
+    return logical
+
+
+def _map_named(fn, tree, name=None):
+    """``fn(leaf's key, leaf)`` over a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def state_sharding_spec(state, mesh):
+    """The :class:`~repro_torch.parallel.sharding.Spec` tree of a decode
+    state (its leaves or their shapes)."""
+    return _map_named(lambda n, t: logical_to_spec(
+        _state_logical(n, t.ndim), tuple(t.shape), mesh), state)
+
+
+def _local_tree(tree):
+    """Each DTensor leaf's local tensor (the very tensor it holds)."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        with torch.no_grad():
+            return tree.to_local()
+    return tree
 
 
 def _leaves(tree):
@@ -72,16 +130,30 @@ class CapturedStep:
       what the capture counted is taken back and added on each replay.
 
     A capture or replay that fails raises; nothing falls back to eager.
-    ``captures`` and ``replays`` count both."""
+    ``captures`` and ``replays`` count both.
 
-    def __init__(self, eager):
+    ``local``: the params and state come as DTensors over a one-device
+    mesh, and the step runs (and is captured) on their local tensors,
+    which are the whole tensors.  ``eager``: never captured (a step on
+    DTensors over several devices, which runs eagerly)."""
+
+    def __init__(self, eager, local: bool = False, captured: bool = True):
         self._eager = eager
+        self._local = local
+        self._captured = captured
         self._graph = None
         self.captures = 0
         self.replays = 0
 
     def __call__(self, params, state, token, pos, *extra):
-        if token.device.type == "cpu":
+        if self._local:
+            logits, _ = self._call(_local_tree(params), _local_tree(state),
+                                   token, pos, *extra)
+            return logits, state
+        return self._call(params, state, token, pos, *extra)
+
+    def _call(self, params, state, token, pos, *extra):
+        if token.device.type == "cpu" or not self._captured:
             return self._eager(params, state, token, pos, *extra)
         bound = list(_leaves(params)) + list(_leaves(state))
         inputs = tuple(_spec(t) for t in (token, pos, *extra))
@@ -139,33 +211,62 @@ class CapturedStep:
         return logits, state
 
 
-def build_serve_step(cfg: ModelConfig, backend: str = "kernel"):
+def build_serve_step(cfg: ModelConfig, backend: str = "kernel", mesh=None):
     """Returns the one-token step → (next-token logits, state):
     ``step(params, state, token, pos)`` for a decoder LM (the step of
     :func:`generate`), ``step(params, state, token, pos, enc_out)`` for an
     encoder-decoder model, ``enc_out`` from ``encdec.encode``.  A
     :class:`CapturedStep`: replayed from a CUDA graph on a card, eager on
     the CPU; the state is updated in place, and the logits returned are
-    the caller's to keep."""
+    the caller's to keep.
 
-    if cfg.is_encoder_decoder:
-        def step(params, state, token, pos, enc_out):
-            return ED.decode_step_encdec(params, state, token, pos, enc_out,
-                                         cfg, backend)
-    else:
-        def step(params, state, token, pos):
-            return TF.decode_step(params, state, token, pos, cfg, backend)
+    With a ``mesh`` the step has ``jit_with(params, state)``, the twin of
+    the reference's: it lays the params out by ``shard_params_spec`` and
+    the state by :func:`state_sharding_spec` (DTensors; each rank keeps
+    its shards) and returns (step, params, state), the step laying the
+    token (and ``enc_out``) out on ``batch``.  On a one-device mesh that
+    step runs and is captured on the DTensors' local tensors (the whole
+    tensors; the reference's constraints are no-ops there and its MoE
+    dispatch computes the same); over several devices it runs on the
+    DTensors, eagerly."""
 
-    return CapturedStep(step)
+    def make(m):
+        if cfg.is_encoder_decoder:
+            def step(params, state, token, pos, enc_out):
+                return ED.decode_step_encdec(params, state, token, pos,
+                                             enc_out, cfg, backend, m)
+        else:
+            def step(params, state, token, pos):
+                return TF.decode_step(params, state, token, pos, cfg,
+                                      backend, m)
+        return step
+
+    captured = CapturedStep(make(None))
+    if mesh is None:
+        return captured
+
+    def jit_with(params, state):
+        dparams = distribute_tree(params, shard_params_spec(params, mesh),
+                                  mesh)
+        dstate = distribute_tree(state, state_sharding_spec(state, mesh),
+                                 mesh)
+        if mesh.size() == 1:
+            return CapturedStep(make(None), local=True), dparams, dstate
+        return CapturedStep(make(mesh), captured=False), dparams, dstate
+
+    captured.jit_with = jit_with
+    return captured
 
 
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
-             backend: str = "kernel") -> torch.Tensor:
+             backend: str = "kernel", mesh=None) -> torch.Tensor:
     """Greedy batched generation (decoder-only models).
     prompts (B, Tp) int32 → (B, Tp + max_new), on the prompts' device.
     Every step, the teacher-forced prompt's and the new tokens', goes
     through one :func:`build_serve_step` step: on a card its first call
-    runs eagerly and captures the graph, the others replay it."""
+    runs eagerly and captures the graph, the others replay it.  With a
+    ``mesh``, the params (the same on every rank) and the state are laid
+    out by the step's ``jit_with`` first."""
     if cfg.is_encoder_decoder:
         raise ValueError(f"generate serves decoder-only models; drive "
                          f"{cfg.name} through build_serve_step with the "
@@ -173,8 +274,15 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
     Bsz, Tp = prompts.shape
     state = TF.init_decode_state(cfg, Bsz, Tp + max_new,
                                  device=prompts.device)
-    step = build_serve_step(cfg, backend)
+    step = build_serve_step(cfg, backend, mesh)
+    if mesh is not None:
+        step, params, state = step.jit_with(params, state)
     pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
+
+    def greedy(logits):
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
+        return logits.argmax(-1).to(torch.int32)
 
     # teacher-forced prefill through the decode path (exact, cache-filling)
     logits = None
@@ -183,12 +291,12 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
         pos += 1
 
     out = [prompts]
-    tok = logits.argmax(-1).to(torch.int32)
+    tok = greedy(logits)
     for i in range(max_new):
         out.append(tok[:, None])
         if i == max_new - 1:
             break
         logits, state = step(params, state, tok, pos)
         pos += 1
-        tok = logits.argmax(-1).to(torch.int32)
+        tok = greedy(logits)
     return torch.cat(out, dim=1)

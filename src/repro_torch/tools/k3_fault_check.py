@@ -24,13 +24,14 @@ rms (``ref.scan_rel_err``); h_last within 2^-10 of it relative to |want|
 plus the rms of its (b, d) row (``ref.state_rel_err``); and, for the
 softplus draw only, h_last within 1e-4 (over a long memory the exps' own
 rounding compounds past 1e-4, so that draw holds h by its size alone).
-With ``--device cuda`` the kernel (``ops.ssm_scan``) is held to the same
+On the card (the default; ``--device cpu`` runs the plain variants
+alone) the kernel (``ops.ssm_scan``) is held to the same
 gates on the same inputs as a ``kernel`` row.  Prints one JSON line per
 (variant, draw) with the gates that caught it, and exits 1 unless the sound
 variant and the kernel pass every gate and every fault is caught by at
 least one gate in each draw:
 
-    PYTHONPATH=src python -m repro_torch.tools.k3_fault_check [--device cuda]
+    PYTHONPATH=src python -m repro_torch.tools.k3_fault_check [--device cpu]
 """
 
 from __future__ import annotations
@@ -121,7 +122,7 @@ def check(variant: str, decay: str, y, h, args, want_y, want_h) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--Bt", type=int, default=1)
     ap.add_argument("--L", type=int, default=300)
     ap.add_argument("--Dm", type=int, default=64)

@@ -20,7 +20,7 @@ bf16 ulp of it run in fp32 relative to |want| plus the row's rms
 variant with the gates that caught it, and exits 1 unless the sound variant
 passes every gate and every fault is caught by at least one:
 
-    PYTHONPATH=src python -m repro_torch.tools.k4_fault_check [--device cuda]
+    PYTHONPATH=src python -m repro_torch.tools.k4_fault_check [--device cpu]
 """
 
 from __future__ import annotations
@@ -103,7 +103,7 @@ def check(variant: str, args, want_o, want_s) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     ap.add_argument("--B", type=int, default=1)
     ap.add_argument("--H", type=int, default=8)
     ap.add_argument("--T", type=int, default=300)

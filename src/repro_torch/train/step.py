@@ -1,7 +1,12 @@
 """The train step of the port: forward and backward by autograd, optional
 gradient accumulation and bf16 gradient compression with fp32 error
-feedback, then AdamW in place (``repro.train.step``'s counterpart on one
-device; the sharded ``jit_with`` path waits for a port of ``parallel/``).
+feedback, then AdamW in place (``repro.train.step``'s counterpart).
+
+With a ``mesh`` the state is laid out by :func:`state_shardings` (the
+parameters by ``shard_params_spec``, the AdamW moments by the parameters'
+specs, the step count replicated) as DTensors, the batch on ``batch``, and
+forward and backward run on DTensors: the gradient reduction is DTensor's.
+Checkpoints keep full tensors (``full_tensor()``).
 
 The model runs its plain path (``backend="ref"``), as the reference trains
 with ``KB = "ref"``: no kernel of :mod:`repro_torch.kernels` has a backward
@@ -17,11 +22,13 @@ import torch
 from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig, check_device
-from ..optim.adamw import AdamWState, adamw_init, adamw_update
+from ..optim.adamw import AdamWState, adamw_init, adamw_update, local
+from ..parallel.sharding import (Spec, distribute_tree, sharded_region,
+                                 shard_params_spec)
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["TrainState", "make_train_state", "build_train_step",
-           "loss_and_grads"]
+           "loss_and_grads", "state_shardings"]
 
 
 class TrainState(NamedTuple):
@@ -56,7 +63,8 @@ def _loss_impl(cfg: ModelConfig):
     return ED.loss_fn_encdec if cfg.is_encoder_decoder else TF.loss_fn
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch, accum_steps: int = 1):
+def loss_and_grads(cfg: ModelConfig, params, batch, accum_steps: int = 1,
+                   mesh=None):
     """(loss, {"ce", "aux"}, gradients in the parameters' tree).
 
     ``accum_steps`` > 1 cuts the batch into that many contiguous leading
@@ -64,12 +72,21 @@ def loss_and_grads(cfg: ModelConfig, params, batch, accum_steps: int = 1):
     runs one backward each, sums the gradients in fp32 and divides; the
     loss reported is then the microbatches' mean CE, where the reference
     reports the last microbatch's CE + aux.  Otherwise the gradients are in
-    the parameters' dtype."""
-    loss_fn = _loss_impl(cfg)
+    the parameters' dtype.  With a ``mesh`` (DTensor params; the batch
+    given whole, each microbatch laid out on ``batch``) forward and
+    backward run on DTensors."""
+    with sharded_region(mesh):
+        return _loss_and_grads(cfg, params, batch, accum_steps, mesh)
+
+
+def _loss_and_grads(cfg: ModelConfig, params, batch, accum_steps, mesh):
+    def loss_fn(p, b):
+        return _loss_impl(cfg)(p, b, cfg, mesh=mesh)
+
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     live = tree_unflatten(params, leaves)
     if accum_steps == 1:
-        loss, metrics = loss_fn(live, batch, cfg)
+        loss, metrics = loss_fn(live, batch)
         grads = torch.autograd.grad(loss, leaves)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 tree_unflatten(params, grads))
@@ -78,12 +95,11 @@ def loss_and_grads(cfg: ModelConfig, params, batch, accum_steps: int = 1):
         raise ValueError(f"batch {B} is not a multiple of accum_steps "
                          f"{accum_steps}")
     mb = B // accum_steps
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in leaves]
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     ce = aux = 0.0
     for i in range(accum_steps):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        loss, metrics = loss_fn(live, part, cfg)
+        loss, metrics = loss_fn(live, part)
         for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
             a.add_(g)
         ce = ce + metrics["ce"].detach()
@@ -106,8 +122,19 @@ def _compress(grads, ef):
         return tree_map(comp, grads, ef)
 
 
-def build_train_step(cfg: ModelConfig, *, lr=3e-4, accum_steps: int = 1,
-                     compress_grads: bool = False, backend: str = "ref"):
+def state_shardings(state: TrainState, mesh) -> TrainState:
+    """The :class:`~repro_torch.parallel.sharding.Spec` tree of a train
+    state: the parameters by ``shard_params_spec``, the moments (and the
+    error-feedback residuals) by the parameters' specs, ``step``
+    replicated."""
+    pspec = shard_params_spec(state.params, mesh)
+    opt = AdamWState(Spec(), pspec, pspec)
+    return TrainState(pspec, opt, pspec if state.ef is not None else None)
+
+
+def build_train_step(cfg: ModelConfig, mesh=None, *, lr=3e-4,
+                     accum_steps: int = 1, compress_grads: bool = False,
+                     backend: str = "ref"):
     """Returns ``step(state, batch) -> (state, metrics)``.  ``lr`` a float
     or a callable of the optimizer's step count (a 0-d int32 tensor);
     ``batch`` a dict of tensors on the parameters' device.  The state is
@@ -115,7 +142,13 @@ def build_train_step(cfg: ModelConfig, *, lr=3e-4, accum_steps: int = 1,
     "loss") are 0-d tensors, read without waiting on the device.
 
     ``backend`` must be "ref": the kernels have no backward pass (see
-    :func:`repro_torch.kernels._build.refuse_autograd`)."""
+    :func:`repro_torch.kernels._build.refuse_autograd`).
+
+    With a ``mesh`` the step has ``jit_with(state)``, the twin of the
+    reference's: it returns (step, the state laid out by
+    :func:`state_shardings` as DTensors, each rank keeping its shards).
+    The step takes the batch whole (the same on every rank) and lays each
+    microbatch out on ``batch``."""
     if backend != "ref":
         raise ValueError(
             f"backend={backend!r}: a train step runs the plain path "
@@ -129,14 +162,24 @@ def build_train_step(cfg: ModelConfig, *, lr=3e-4, accum_steps: int = 1,
             raise ValueError("compress_grads needs a state made with "
                              "make_train_state(..., compress_grads=True)")
         loss, metrics, grads = loss_and_grads(cfg, state.params, batch,
-                                              accum_steps)
+                                              accum_steps, mesh)
         ef = state.ef
         if compress_grads:
             grads = _compress(grads, ef)
-        lr_val = lr(state.opt.step) if callable(lr) else lr
+        lr_val = lr(local(state.opt.step)) if callable(lr) else lr
         params, opt, om = adamw_update(state.params, grads, state.opt,
                                        lr_val)
         metrics = {**metrics, **om, "loss": metrics["ce"]}
         return TrainState(params, opt, ef), metrics
 
+    if mesh is not None:
+        def jit_with(state: TrainState):
+            specs = state_shardings(state, mesh)
+            return step, TrainState(
+                distribute_tree(state.params, specs.params, mesh),
+                AdamWState(distribute_tree(state.opt.step, Spec(), mesh),
+                           distribute_tree(state.opt.mu, specs.opt.mu, mesh),
+                           distribute_tree(state.opt.nu, specs.opt.nu, mesh)),
+                distribute_tree(state.ef, specs.ef, mesh))
+        step.jit_with = jit_with
     return step

@@ -53,12 +53,13 @@ def _equal(a, b):
 
 def test_batch_at_is_pure_and_shaped():
     ds = SyntheticLM(1000, 64, 4, seed=3, prefix_len=5, d_model=16)
-    a, b = batch_at(ds, 7), batch_at(ds, 7)
+    a, b = batch_at(ds, 7, "cpu"), batch_at(ds, 7, "cpu")
     for k in a:
         assert torch.equal(a[k], b[k])
-    assert not torch.equal(a["tokens"], batch_at(ds, 8)["tokens"])
+    assert not torch.equal(a["tokens"], batch_at(ds, 8, "cpu")["tokens"])
     assert not torch.equal(
-        a["tokens"], batch_at(dataclasses.replace(ds, seed=4), 7)["tokens"])
+        a["tokens"],
+        batch_at(dataclasses.replace(ds, seed=4), 7, "cpu")["tokens"])
     assert a["tokens"].shape == a["labels"].shape == (4, 64)
     assert a["tokens"].dtype == a["labels"].dtype == torch.int32
     t = a["tokens"]
@@ -68,7 +69,7 @@ def test_batch_at_is_pure_and_shaped():
     pe = a["prefix_embeds"]
     assert pe.shape == (4, 5, 16) and pe.dtype == torch.float32
     assert 0.01 < float(pe.std()) < 0.03
-    assert "prefix_embeds" not in batch_at(SyntheticLM(10, 4, 1), 0)
+    assert "prefix_embeds" not in batch_at(SyntheticLM(10, 4, 1), 0, "cpu")
 
 
 def _stats(tokens: np.ndarray, V: int):
@@ -83,7 +84,7 @@ def test_batch_at_matches_the_reference_distribution():
     V/4, half the mass below V/8) and the 30% of tokens that repeat their
     predecessor's base + 1 agree within sampling error."""
     V, B, T = 4096, 64, 512
-    got = np.concatenate([batch_at(SyntheticLM(V, T, B, seed=1), s)
+    got = np.concatenate([batch_at(SyntheticLM(V, T, B, seed=1), s, "cpu")
                           ["tokens"].numpy() for s in range(2)])
     want = np.concatenate([np.asarray(jbatch_at(JSyntheticLM(V, T, B, seed=1),
                                                 s)["tokens"])
@@ -181,11 +182,11 @@ def test_save_and_resume_continue_the_trajectory_bit_for_bit(tmp_path):
 
     a, la = fresh(), []
     for i in range(4):
-        a, m = step(a, batch_at(ds, i))
+        a, m = step(a, batch_at(ds, i, "cpu"))
         la.append(float(m["loss"]))
     b, lb = fresh(), []
     for i in range(2):
-        b, m = step(b, batch_at(ds, i))
+        b, m = step(b, batch_at(ds, i, "cpu"))
         lb.append(float(m["loss"]))
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(2, b)
@@ -193,7 +194,7 @@ def test_save_and_resume_continue_the_trajectory_bit_for_bit(tmp_path):
     start, c = mgr.restore(template, device="cpu")
     _equal(c, b)
     for i in range(start, 4):
-        c, m = step(c, batch_at(ds, i))
+        c, m = step(c, batch_at(ds, i, "cpu"))
         lb.append(float(m["loss"]))
     assert la == lb
     _equal(a, c)
@@ -209,7 +210,8 @@ def test_async_snapshot_survives_an_in_place_update(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, state, blocking=False)
     step = TS.build_train_step(tcfg, lr=1e-2)
-    state, _ = step(state, batch_at(SyntheticLM(tcfg.vocab_size, 8, 2), 0))
+    state, _ = step(state,
+                    batch_at(SyntheticLM(tcfg.vocab_size, 8, 2), 0, "cpu"))
     assert not torch.equal(tree_leaves(state)[0], before[0])
     mgr.wait()
     _, got = mgr.restore(TS.make_train_state(tcfg, device="meta"),

@@ -836,6 +836,41 @@ def test_captured_serve_step_gives_the_eager_tokens_and_state(card, arch):
     assert torch.equal(generate(params, cfg, prompts, new), want)
 
 
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "jamba_1_5_large_398b"])
+def test_one_card_mesh_serve_step_gives_the_unsharded_tokens(card, arch):
+    """The serve step on a one-card DeviceMesh (nccl, world size 1): its
+    jit_with lays params and state out as DTensors without copying them,
+    and the step (captured over their local tensors) gives the unsharded
+    captured step's tokens and state bit for bit, launching K2 decode as
+    often."""
+    from repro_torch.launch.mesh import local_group, shape_mesh
+    cfg = get_config(arch, reduced=True)
+    params = TF.init_params(cfg, torch.Generator(card).manual_seed(2), card)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 6), device=card,
+                            dtype=torch.int32,
+                            generator=torch.Generator(card).manual_seed(3))
+    new = 4
+    state = TF.init_decode_state(cfg, 2, 10, device=card)
+    before = decode_attention_cuda.launches
+    want = _greedy(build_serve_step(cfg), params, state, prompts, new)
+    n_want = decode_attention_cuda.launches - before
+    with local_group(str(card)):
+        mesh = shape_mesh((1, 1), ("data", "model"), device_type="cuda")
+        step, dparams, dstate = build_serve_step(cfg, mesh=mesh).jit_with(
+            params, TF.init_decode_state(cfg, 2, 10, device=card))
+        first = dparams["embed"]["table"]
+        assert first.to_local().data_ptr() == \
+            params["embed"]["table"].data_ptr()
+        before = decode_attention_cuda.launches
+        got = _greedy(step, dparams, dstate, prompts, new)
+        torch.cuda.synchronize()
+        assert decode_attention_cuda.launches - before == n_want
+        assert step.captures == 1
+    assert torch.equal(got, want)
+    _same_state({k: {kk: vv.to_local() for kk, vv in v.items()}
+                 for k, v in dstate.items()}, state)
+
+
 def test_captured_encdec_step_gives_the_eager_tokens_and_cache(card):
     """Whisper smoke in bf16: the serve-step loop (the cross-attention's
     K2 prefill over the encoder's output, the self-attention's K2 decode)
@@ -926,7 +961,7 @@ def _train_inputs(cfg, dev):
     from repro_torch.data.pipeline import SyntheticLM, batch_at
     from repro_torch.train.step import make_train_state
     state = make_train_state(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0)
+    batch = batch_at(SyntheticLM(cfg.vocab_size, 16, 4, seed=2), 0, "cpu")
     if dev.type == "cpu":
         return state, batch
     from repro_torch.tree import tree_map

@@ -847,7 +847,7 @@ def test_rwkv6_rel_err_admits_the_rounding_and_no_planted_fault():
     from repro_torch.tools import k4_fault_check
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = k4_fault_check.main(["--H", "4", "--T", "150"])
+        rc = k4_fault_check.main(["--device", "cpu", "--H", "4", "--T", "150"])
     rows = {r["variant"]: r for r in map(json.loads,
                                         out.getvalue().splitlines())}
     assert rc == 0 and rows["sound"]["caught_by"] == []
@@ -1088,7 +1088,7 @@ def test_k3_gates_admit_the_sound_scan_and_no_planted_fault():
     from repro_torch.tools import k3_fault_check
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = k3_fault_check.main(["--L", "100", "--Dm", "48"])
+        rc = k3_fault_check.main(["--device", "cpu", "--L", "100", "--Dm", "48"])
     rows = {(r["variant"], r["decay"]): r
             for r in map(json.loads, buf.getvalue().splitlines())}
     assert rc == 0

@@ -738,6 +738,11 @@ def test_port_imports_neither_jax_nor_repro_at_runtime():
     assert {f"repro_torch.core.{m}" for m in (
         "affine", "workload", "dataflow", "cost", "perf_model", "mapper",
         "fusion", "perf_model_torch", "mapper_batch")} <= mods
+    # and the sharding and launch tools'
+    assert {"repro_torch.parallel.sharding"} | {
+        f"repro_torch.launch.{m}" for m in (
+            "mesh", "cells", "opcount", "roofline", "dryrun",
+            "report")} <= mods
     assert {"repro_torch.frontend.model_graph", "repro_torch.frontend.lower",
             "repro_torch.dse.space", "repro_torch.dse.cache",
             "repro_torch.dse.batch_sweep"} <= mods
