@@ -10,17 +10,28 @@ semantics, fp32 accumulation):
   decode_attention_split_ref: the same, cut at the decode kernel's chunk
                          edges and merged as its combine pass merges
   selective_scan_ref   : the Mamba S6 scan, a loop over L
+  chunked_selective_scan_ref: the same over chunks, an associative scan
+                         inside each, each chunk rematerialized for the
+                         backward pass (the reference's, above
+                         chunk_threshold)
   scan_rel_err         : a scan's y against it run in fp32, per (b, l) row
   state_rel_err        : a scan's h_last against it run in fp32, per (b, d)
   rwkv6_ref            : the RWKV-6 wkv recurrence, a loop over T
   rwkv6_chunked_ref    : the same in the bf16 kernel's chunked matrix form
+  chunked_rwkv6_ref    : the same over chunks in that matrix form in fp32
+                         from a carried state, each chunk rematerialized
+                         for the backward pass (the reference's, above
+                         chunk_threshold)
 
 These are what the CPU runs and what the CUDA kernels are held against.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .autotile import RWKV_CHUNK, RWKV_SUB, decode_splits
 
@@ -258,6 +269,72 @@ def rwkv6_rel_err(got, r, k, v, w, u) -> float:
     return ((got.float() - want).abs() / den).max().item()
 
 
+def _wkv_consts(u, NS: int, SUB: int) -> dict:
+    """What :func:`_wkv_terms` reads besides the chunk, made once a call:
+    the masks of :func:`_decays` over SUB steps and NS sub-chunks, the
+    diagonal sub-blocks' u term and masks, and the blocks' masks."""
+    dev = u.device
+    i, j = torch.arange(SUB + 1, device=dev), torch.arange(NS + 1, device=dev)
+    eye = (i[None, :SUB] == i[:SUB, None])[:, :, None]
+    jj = j[:NS]
+    return {"one": torch.ones((), device=dev),
+            "zero": torch.zeros((), device=dev),
+            "after_sub": (i[None, :] > i[:, None])[:, :, None],
+            "after_blk": (j[None, :] > j[:, None])[:, :, None],
+            "below": (i[None, :SUB] > i[:SUB, None])[:, :, None],  # [s, t]
+            "u_diag": u.float()[:, None, None, None, :] * eye,
+            "blk_lt": (jj[None, :] < jj[:, None])[:, None, :, None],
+            "blk_eq": (jj[None, :] == jj[:, None])[:, None, :, None]}
+
+
+def _decays(w, later, one):
+    """D[..., a, t, :] = Π_{a−1 < τ < t} w_τ over the second-to-last axis
+    of ``w`` (length m), for a and t in 0..m: a = 0 starts before the
+    first step, t = m ends after the last, and an empty range gives 1.
+    One cumulative product of w masked to each row's range (``later``
+    [a, t] = t > a)."""
+    return torch.where(later, torch.nn.functional.pad(
+        w, (0, 0, 1, 0), value=1.0).unsqueeze(-3), one).cumprod(-2)
+
+
+def _wkv_terms(rs, ks, ws, consts):
+    """The terms of one chunk's matrix form that do not read the state (the
+    algebra of :func:`rwkv6_chunked_ref` in fp32, without its loops over
+    sub-chunks and steps).  rs/ks/ws (B, H, NS, SUB, Dk) fp32 are NS
+    sub-chunks of SUB steps, ``consts`` :func:`_wkv_consts`'.  With
+    C = NS·SUB, returns
+
+      A     (B, H, C, C)         o = A·V + Rs·S_0 inside the chunk;
+      Rs    (B, H, C, Dk)        r_t ⊙ Π_{τ<t} w;
+      ksex  (B, H, NS, SUB, Dk)  k_s ⊙ Π_{s<τ≤J_end} w in sub-chunk J;
+      after (B, H, NS, Dk)       the decay of the sub-chunks after J;
+      Wtot  (B, H, Dk)           the chunk's whole decay.
+
+    The decays inside a sub-chunk, and those of whole sub-chunks between
+    sub-chunks, each come from one :func:`_decays`.  The diagonal
+    sub-blocks are summed element by element in fp32 (the u term on their
+    diagonal); a block J < I is (r ⊙ Π_{I_0≤τ<t} w)·
+    (k_s ⊙ Π_{s<τ<I_0} w)ᵀ, computed for every (I, J) in one batched
+    product and kept below the diagonal."""
+    NS, SUB = ws.shape[-3:-1]
+    # (..., NS, SUB + 1, SUB + 1, Dk)
+    D = _decays(ws, consts["after_sub"], consts["one"])
+    pex, Dd = D[..., 0, :SUB, :], D[..., 1:, :SUB, :]
+    ksex = ks * D[..., 1:, SUB, :]
+    E = torch.where(consts["below"], Dd, consts["u_diag"])
+    AdT = (rs.unsqueeze(-3) * E * ks.unsqueeze(-2)).sum(-1)   # [s, t]
+    Y = _decays(D[..., 0, SUB, :], consts["after_blk"], consts["one"])
+    R = rs * pex
+    K2 = ksex.unsqueeze(-4) * Y[..., 1:, :NS, :].transpose(-2, -3) \
+        .unsqueeze(-2)                     # [I, J, s]
+    Ai = (R @ K2.flatten(-3, -2).transpose(-1, -2)).unflatten(-1, (NS, SUB))
+    A = torch.where(consts["blk_lt"], Ai, torch.where(
+        consts["blk_eq"], AdT.transpose(-1, -2).unsqueeze(-2), consts["zero"]))
+    Rs = R * Y[..., 0, :NS, None, :]
+    return (A.flatten(-4, -3).flatten(-2, -1), Rs.flatten(-3, -2), ksex,
+            Y[..., 1:, NS, :], Y[..., 0, NS, :])
+
+
 def rwkv6_chunked_ref(r, k, v, w, u):
     """:func:`rwkv6_ref` computed as the bf16 tensor-core kernel computes
     it (``csrc/rwkv6.cu``), so that its algebra can be held against the
@@ -364,6 +441,62 @@ def rwkv6_chunked_ref(r, k, v, w, u):
     return o.to(dt), S
 
 
+
+
+def _per_chunk(body):
+    """``body`` as each chunk's step of a chunked form: rematerialized in
+    the backward pass (the reference's ``jax.checkpoint`` with
+    ``nothing_saveable``) when gradients are recorded, so that the
+    backward keeps the carries between chunks and recomputes one chunk at
+    a time; called as it is otherwise."""
+    if not torch.is_grad_enabled():
+        return body
+
+    def run(*args):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
+def chunked_rwkv6_ref(r, k, v, w, u, chunk: int = 256):
+    """:func:`rwkv6_ref` over chunks of ``chunk`` steps (the twin of
+    ``repro.kernels.ref.chunked_rwkv6_ref``): a zero fp32 (Dk, Dv) state
+    carried from chunk to chunk, each chunk's o rounded to r's dtype, each
+    chunk's step rematerialized for the backward pass.  ``chunk`` is cut
+    to T and must divide it.  Inside a chunk no loop over its steps: the
+    algebra of :func:`rwkv6_chunked_ref` (K4's gate, left as it is) in
+    fp32 from the carried state (:func:`_wkv_terms`, sub-chunks of
+    ``gcd(chunk, RWKV_SUB)`` steps),
+
+        o = A·V + Rs·S_0,    S_C = diag(Wtot)·S_0 + (ksex ⊙ after)ᵀ·V.
+
+    Returns (o (B, H, T, Dv) in r.dtype, S_last (B, H, Dk, Dv) fp32)."""
+    B, H, T, Dk = r.shape
+    chunk = min(chunk, T)
+    assert T % chunk == 0
+    sub = math.gcd(chunk, RWKV_SUB)
+    dt = r.dtype
+    consts = _wkv_consts(u, chunk // sub, sub)
+
+    def body(S, rc, kc, vc, wc):
+        rs, ks, ws = (t.float().reshape(B, H, chunk // sub, sub, Dk)
+                      for t in (rc, kc, wc))
+        vf = vc.float()
+        A, Rs, ksex, after, Wtot = _wkv_terms(rs, ks, ws, consts)
+        o = A @ vf + Rs @ S
+        Ka = (ksex * after[..., None, :]).reshape(B, H, chunk, Dk)
+        return o.to(dt), Wtot[..., None] * S + Ka.transpose(-1, -2) @ vf
+
+    step = _per_chunk(body)
+    S = torch.zeros((B, H, Dk, v.shape[-1]), dtype=torch.float32,
+                    device=r.device)
+    outs = []
+    for parts in zip(*(t.split(chunk, dim=2) for t in (r, k, v, w))):
+        o, S = step(S, *parts)
+        outs.append(o)
+    return torch.cat(outs, 2), S
+
+
 def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
     """Mamba S6 selective scan (diagonal, real A < 0), per channel d and
     state n, with an fp32 state h (Bt, Dm, N):
@@ -371,12 +504,16 @@ def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
         h_l = exp(dt_l·A)·h_{l-1} + (dt_l·x_l)·B_l,    y_l = h_l·C_l + x_l·D
 
     x/dt (Bt, L, Dm) (dt after the softplus), A (Dm, N), B/C (Bt, L, N),
-    D_skip (Dm,).  One loop over L that holds only h, where the reference
-    runs an associative scan over (Bt, L, Dm, N) tensors (at Jamba's width
-    four of 2.1 GB each).  Returns (y (Bt, L, Dm) in x.dtype, h_last
-    (Bt, Dm, N) fp32).  Given float64 x, it runs in float64 throughout and
-    returns float64 y and h_last: the arbiter that the fp32 kernel and
-    this scan in fp32 are both held to over a long memory."""
+    D_skip (Dm,).  One loop over L: run without gradients it holds only h,
+    where the reference's unchunked form runs an associative scan over
+    (Bt, L, Dm, N) tensors (at Jamba's width four of 2.1 GB each); under
+    autograd it keeps every step's state for the backward pass, so the
+    model's plain path takes :func:`chunked_selective_scan_ref` from
+    ``chunk_threshold`` on, as the reference does.  Returns (y (Bt, L, Dm)
+    in x.dtype, h_last (Bt, Dm, N) fp32).  Given float64 x, it runs in
+    float64 throughout and returns float64 y and h_last: the arbiter that
+    the fp32 kernel and this scan in fp32 are both held to over a long
+    memory."""
     Bt, L, Dm = x.shape
     acc = torch.promote_types(x.dtype, torch.float32)
     xf, dtf, Bf, Cf, Af = (t.to(acc) for t in (x, dt, B, C, A))
@@ -390,6 +527,65 @@ def selective_scan_ref(x, dt, A, B, C, D_skip, h0=None):
     y = (torch.stack(ys, dim=1) if ys else
          torch.zeros((Bt, 0, Dm), dtype=acc, device=x.device))
     return (y + xf * D_skip.to(acc)).to(x.dtype), h
+
+
+def _exclusive_scan(g, x):
+    """H_l = h_{l−1} (H_0 = 0) of h_l = g_l·h_{l−1} + x_l along dim 1, by
+    ``lax.associative_scan``'s odd/even recursion with the reference's
+    combine (g_a·g_b, x_a·g_b + x_b): adjacent pairs combine into a scan of
+    half the length, whose exclusive results are H at the even steps, and
+    one combine each gives H at the odd steps.  The levels halve, so the
+    scan does O(L) work in ⌈log2 L⌉ levels and keeps about two inputs'
+    worth of them for the backward pass."""
+    L = x.shape[1]
+    if L <= 2:
+        return torch.nn.functional.pad(
+            x[:, :L - 1], (0, 0) * (x.ndim - 2) + (1, 0))
+    m = L // 2
+    ge, go = g[:, 0:2 * m:2], g[:, 1:2 * m:2]
+    xe = x[:, 0:2 * m:2]
+    xr = torch.addcmul(x[:, 1:2 * m:2], xe, go)     # the pairs (2j, 2j + 1)
+    gr = ge * go if m > 2 or L % 2 else None
+    R = _exclusive_scan(gr, xr)                      # h at 2j − 1
+    H = torch.stack((R, torch.addcmul(xe, ge, R)), 2).flatten(1, 2)
+    if L % 2:
+        H = torch.cat((H, torch.addcmul(xr[:, -1:], gr[:, -1:],
+                                        R[:, -1:])), 1)
+    return H
+
+
+def chunked_selective_scan_ref(x, dt, A, B, C, D_skip, chunk: int = 256):
+    """:func:`selective_scan_ref` over chunks of ``chunk`` steps (the twin
+    of ``repro.kernels.ref.chunked_selective_scan_ref``): a zero fp32
+    state h (Bt, Dm, N) carried from chunk to chunk, each chunk's step
+    rematerialized for the backward pass, so that it keeps the carries and
+    one chunk's (Bt, chunk, Dm, N) tensors, not L steps of state.
+    ``chunk`` is cut to L and must divide it.  Inside a chunk the
+    reference's own algorithm: dA = exp(dt·A) and dBx = dt·x·B over the
+    chunk, h_0 seeded into the first step (dBx_0 += dA_0·h_0), and an
+    associative scan (:func:`_exclusive_scan`, then one combine a step).
+    Returns (y (Bt, L, Dm) in x.dtype, h_last (Bt, Dm, N) fp32)."""
+    Bt, L, Dm = x.shape
+    chunk = min(chunk, L)
+    assert L % chunk == 0
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+
+    def body(h0, dtc, dbxc, Bc, Cc):
+        dA = torch.exp(dtc * Af)                      # (Bt, chunk, Dm, N)
+        dBx = dbxc * Bc
+        if h0 is not None:
+            dBx[:, 0].addcmul_(dA[:, 0], h0)
+        h = torch.addcmul(dBx, dA, _exclusive_scan(dA, dBx))
+        return (h * Cc).sum(-1), h[:, -1]
+
+    step = _per_chunk(body)
+    h, ys = None, []
+    for parts in zip(*(t.split(chunk, dim=1) for t in (
+            dtf[..., None], (dtf * xf)[..., None], B.float()[:, :, None],
+            C.float()[:, :, None]))):
+        y, h = step(h, *parts)
+        ys.append(y)
+    return (torch.cat(ys, 1) + xf * D_skip.float()).to(x.dtype), h
 
 
 def _row_rel_err(got, want) -> float:

@@ -105,14 +105,32 @@ def render(base: dict) -> list[str]:
       "`useful` = model FLOPs (6·N_active·D train, 2·N_active·D prefill, "
       "2·N_active·B decode) ÷ counted FLOPs; `roofline` = useful FLOPs at "
       "max(Tc, Tm, Tx) ÷ peak.\n")
-    A("| arch | shape | GB/dev | Tc ms | Tm ms | Tx ms | bottleneck | "
-      "useful | roofline |")
-    A("|---|---|---|---|---|---|---|---|---|")
+    for mesh, title in zip(MESHES, ("single pod", "multi-pod")):
+        if title != "single pod":
+            A(f"\n## Roofline terms, {title}\n")
+        A("| arch | shape | GB/dev | Tc ms | Tm ms | Tx ms | bottleneck | "
+          "useful | roofline |")
+        A("|---|---|---|---|---|---|---|---|---|")
+        for arch in ARCH_IDS:
+            for shape in SHAPES:
+                r = base.get((arch, shape, mesh, ""))
+                if r and r.get("status") == "ok":
+                    A(_row(r))
+    A("\n## Seconds to trace (the host that ran the dry run)\n")
+    A("| arch | shape | 16×16 s | 2×16×16 s | 2×16×16 / 16×16 |")
+    A("|---|---|---|---|---|")
     for arch in ARCH_IDS:
         for shape in SHAPES:
-            r = base.get((arch, shape, "pod16x16", ""))
-            if r and r.get("status") == "ok":
-                A(_row(r))
+            recs = [base.get((arch, shape, m, "")) for m in MESHES]
+            if not any(r and "seconds" in r for r in recs):
+                continue
+            sec = [r["seconds"] if r and "seconds" in r else None
+                   for r in recs]
+            ratio = (f"{sec[1] / sec[0]:.2f}" if None not in sec and sec[0]
+                     else "—")
+            A(f"| {SHORT[arch]} | {shape} | "
+              + " | ".join("—" if t is None else f"{t:.1f}" for t in sec)
+              + f" | {ratio} |")
     return L
 
 

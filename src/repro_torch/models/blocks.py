@@ -471,10 +471,47 @@ def mamba_init(cfg: ModelConfig, gen, device, lead=()) -> dict:
     }
 
 
+# a (B, T, C) op that reads across T (the token shift, the causal conv):
+# on a mesh it runs on each device's shards with T whole, as DTensor's own
+# pad fails on torch 2.11 where T is split
+_BTC = ("b", None, "c")
+
+
+def _seq_to_channels(x, like=None):
+    """x (B, T, C) with each mesh dim that splits T, or that splits the
+    last dim of ``like`` (a weight over C) and not B, splitting C instead,
+    where C divides, so that an op across T runs on local shards without a
+    device repeating another's work."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    wpl = (like.placements if isinstance(like, DTensor)
+           else (Replicate(),) * mesh.ndim)
+
+    def to_c(p, q):
+        return (isinstance(p, Shard) and p.dim == 1) or (
+            isinstance(q, Shard) and q.dim == like.ndim - 1
+            and not (isinstance(p, Shard) and p.dim == 0))
+
+    want = tuple(Shard(x.ndim - 1) if to_c(p, q) else p
+                 for p, q in zip(pl, wpl))
+    ways = math.prod(mesh.shape[i] for i, p in enumerate(want)
+                     if isinstance(p, Shard) and p.dim == x.ndim - 1)
+    if want == pl or x.shape[-1] % ways:
+        return x
+    return x.redistribute(mesh, want)
+
+
 def _causal_conv(x, w):
     """x (B, T, D), w (K, D): depthwise causal; the K shifted products are
     summed in order from 0, each add rounded in x's dtype, as the
-    reference's ``sum`` does."""
+    reference's ``sum`` does.  On a mesh x takes w's split of D first, so
+    that the conv and the scan after it split D as the weights do."""
+    return _local(_causal_conv_local, (_seq_to_channels(x, w), w),
+                  roles=(_BTC, (None, "c")), out_roles=(_BTC,))
+
+
+def _causal_conv_local(x, w):
     K, T = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = xp[:, 0:T] * w[0]
@@ -500,6 +537,13 @@ def _mamba_dbc(cfg: ModelConfig, p, xs):
 _SCAN = dict(roles=ops.SCAN_ROLES, out_roles=ops.SCAN_OUT_ROLES)
 
 
+def _chunked(cfg: ModelConfig, backend: str, T: int) -> bool:
+    """Whether the plain path takes a chunked form (the reference's
+    condition: ``KB == "ref"`` and T at or above ``chunk_threshold``)."""
+    return bool(backend == "ref" and cfg.chunk_threshold
+                and T >= cfg.chunk_threshold)
+
+
 def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel", mesh=None):
     h = rms_norm(x, p["norm"]["scale"], cfg.norm_eps)
     xs, z = (h @ p["in_proj"]["w"]).chunk(2, dim=-1)
@@ -509,10 +553,13 @@ def mamba_fwd(cfg: ModelConfig, p, x, backend: str = "kernel", mesh=None):
     # mamba_step keeps it in fp32
     args = (xs, dt, -torch.exp(p["A_log"].float()), Bc.contiguous(),
             Cc.contiguous(), p["D"])
-    # Every T takes one path: the plain loop holds only the (Dm, N) state
-    # (the reference chunks above ``chunk_threshold`` only to rematerialize
-    # each chunk for its backward pass)
-    if backend == "ref":
+    # the plain path takes the reference's chunked scan at and above
+    # ``chunk_threshold`` (each chunk rematerialized for the backward
+    # pass), its per-step loop below
+    if _chunked(cfg, backend, xs.shape[1]):
+        y, _ = _local(R.chunked_selective_scan_ref, args, **_SCAN,
+                      chunk=cfg.scan_chunk)
+    elif backend == "ref":
         y, _ = _local(R.selective_scan_ref, args, **_SCAN)
     else:
         y, _ = ops.ssm_scan(*args)
@@ -577,7 +624,14 @@ def rwkv_init(cfg: ModelConfig, gen, device, lead=()) -> dict:
 
 
 def _shift(h):
-    """Token shift: h at t - 1, zeros at t = 0 (h is (B, T, d))."""
+    """Token shift: h at t - 1, zeros at t = 0 (h is (B, T, d)).  On a
+    mesh h takes T's split on its channels first, so that the shift runs
+    on local shards and no device repeats another's work."""
+    return _local(_shift_local, (_seq_to_channels(h),), roles=(_BTC,),
+                  out_roles=(_BTC,))
+
+
+def _shift_local(h):
     return F.pad(h, (0, 0, 1, 0))[:, :-1]
 
 
@@ -624,11 +678,13 @@ def rwkv_fwd(cfg: ModelConfig, p, x, backend: str = "kernel", mesh=None):
     # w is rounded to the model dtype before the recurrence (the reference's
     # ``w.astype(x.dtype)``); rwkv_step keeps it in fp32
     args = (heads(r), heads(k), heads(v), heads(w.to(x.dtype)), p["u"])
-    # Every T takes one path: the plain loop holds only the (Dk, Dv) state,
-    # so unlike attention it gains nothing from chunks above
-    # ``chunk_threshold`` (the reference chunks to rematerialize each chunk
-    # for its backward pass, which this forward-only port has not).
-    if backend == "ref":
+    # the plain path takes the reference's chunked recurrence at and above
+    # ``chunk_threshold`` (each chunk rematerialized for the backward
+    # pass), its per-step loop below
+    if _chunked(cfg, backend, T):
+        o, _ = _local(R.chunked_rwkv6_ref, args, **_WKV,
+                      chunk=cfg.scan_chunk)
+    elif backend == "ref":
         o, _ = _local(R.rwkv6_ref, args, **_WKV)
     else:
         o, _ = ops.rwkv6(*args)

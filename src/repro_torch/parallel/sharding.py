@@ -28,6 +28,7 @@ axes in mesh order, and :func:`placements` asserts it.
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 from dataclasses import dataclass
 
@@ -350,7 +351,66 @@ def _no_strategy(err: Exception) -> bool:
 
 
 def _not_viewable(err: Exception) -> bool:
-    return "view size is not compatible" in str(err)
+    msg = str(err)
+    return "view size is not compatible" in msg or "Cannot view" in msg
+
+
+_FLATTENING_VIEWS = (torch.ops.aten.view.default,
+                     torch.ops.aten._unsafe_view.default)
+
+
+def _plain_rows(func, args, always: bool = False):
+    """``args`` with the DTensor a product flattens to rows, (…, K) →
+    (M, K), laid out so that its rows are a plain shard: each mesh dim
+    that splits a flattened dim after the first, or holds a pending sum,
+    splits the first dim instead where it divides (each device then
+    multiplies its own rows), else K (each device a partial sum over its
+    part of K), else neither (that dim is gathered), so that every device
+    still does its share of the product.  Otherwise the rows are a
+    DTensor strided shard.  On a mesh of three or more dims (B over
+    ("pod", "data") and T over "model" on 2×16×16), DTensor plans each
+    redistribution of one by a graph search over the mesh's placements,
+    once for each candidate strategy of each product, so the rows are
+    laid out first; on two (16×16), only where DTensor has no view into
+    them (``always``: torch 2.11)."""
+    if func not in _FLATTENING_VIEWS or not isinstance(args[0], DTensor):
+        return None
+    a, size = args[0], list(args[1])
+    if a.ndim < 3 or len(size) != 2 or size[1] != a.shape[-1]:
+        return None
+    mesh, k = a.device_mesh, a.ndim - 1
+    lead = [i for i, pl in enumerate(a.placements)
+            if isinstance(pl, Shard) and pl.dim < k]
+    later = [i for i in lead if a.placements[i].dim > 0]
+    if not (always and later or mesh.ndim >= 3 and (
+            len(lead) >= 3 and len(later) < len(lead)
+            or any(pl.is_partial() for pl in a.placements))):
+        return None
+    # a pending sum is scattered over the rows too: multiplied as it is by
+    # a weight that mesh dim does not split, every device would repeat
+    # the whole product
+    later += [i for i, pl in enumerate(a.placements) if pl.is_partial()]
+
+    def ways(dim):
+        return math.prod(mesh.shape[i] for i, pl in enumerate(a.placements)
+                         if i in later or pl == Shard(dim))
+
+    to = (Shard(0) if a.shape[0] % ways(0) == 0
+          else Shard(k) if a.shape[k] % ways(k) == 0 else Replicate())
+    want = tuple(to if i in later else pl
+                 for i, pl in enumerate(a.placements))
+    return (_contiguous_local(a.redistribute(mesh, want)), *args[1:])
+
+
+def _contiguous_local(a):
+    """``a`` with a contiguous local tensor, so that a view its global
+    strides admit is one its local tensor admits too (a redistribution
+    or a backward's transpose can leave the local tensor strided)."""
+    if a.to_local().is_contiguous():
+        return a
+    return DTensor.from_local(a.to_local().contiguous(), a.device_mesh,
+                              a.placements, run_check=False, shape=a.shape,
+                              stride=a.stride())
 
 
 def _replicated(a):
@@ -370,19 +430,18 @@ class _ReplicateFallback(TorchDispatchMode):
         kwargs = kwargs or {}
         if not any(issubclass(t, DTensor) for t in types):
             return func(*args, **kwargs)
+        args = _plain_rows(func, args) or args
         try:
             return func(*args, **kwargs)
-        except (NotImplementedError, RuntimeError) as e:
+        except (NotImplementedError, RuntimeError, ValueError) as e:
+            flat = _no_strategy(e) and _plain_rows(func, args, always=True)
+            if flat:
+                return func(*flat, **kwargs)
             if func is torch.ops.aten.view.default and _not_viewable(e):
                 # the DTensor's strides admit a view that its local
                 # tensor's do not (a backward's reshape of a transposed
                 # gradient): view a contiguous copy, as reshape would
-                a = args[0]
-                a = DTensor.from_local(a.to_local().contiguous(),
-                                       a.device_mesh, a.placements,
-                                       run_check=False, shape=a.shape,
-                                       stride=a.stride())
-                return func(a, *args[1:], **kwargs)
+                return func(_contiguous_local(args[0]), *args[1:], **kwargs)
             if not _no_strategy(e):
                 raise
         r_args = tree_map(_replicated, args)

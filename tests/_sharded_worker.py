@@ -79,6 +79,41 @@ def _dense(job, mesh, out):
     out["step_grad_norm"] = _to_np(metrics["grad_norm"])
 
 
+def _scans(job, mesh, out):
+    """The RWKV-6 and Jamba smokes' forward, loss and gradients on the
+    mesh, counting the calls of the chunked forms."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.kernels import ref as R
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.sharding import (distribute_tree,
+                                               shard_params_spec)
+    from repro_torch.train.step import loss_and_grads
+
+    calls = [0]
+    for name in ("chunked_rwkv6_ref", "chunked_selective_scan_ref"):
+        def counted(*a, _fn=getattr(R, name), **kw):
+            calls[0] += 1
+            return _fn(*a, **kw)
+        setattr(R, name, counted)
+    for arch, case in job["scans"].items():
+        calls[0] = 0
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  **case["over"])
+        params = params_from_jax(case["params"], cfg, device="cpu")
+        params = distribute_tree(params, shard_params_spec(params, mesh),
+                                 mesh)
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        logits, _ = TF.forward(params, batch["tokens"], cfg, backend="ref",
+                               mesh=mesh)
+        out[f"{arch}/forward"] = _to_np(logits)
+        loss, _, grads = loss_and_grads(cfg, params, batch, mesh=mesh)
+        out[f"{arch}/loss"] = _to_np(loss)
+        for path, g in _paths(grads):
+            out[f"{arch}/grad/{path}"] = _to_np(g)
+        out[f"{arch}/chunked_calls"] = np.array(calls[0])
+
+
 def _moe(job, mesh, out):
     from repro_torch.configs import get_config
     from repro_torch.models import blocks as B
@@ -103,6 +138,51 @@ def _moe(job, mesh, out):
     out["moe_y_unsharded"] = _to_np(y1)
 
 
+def _multi_pod(job, mesh, out):
+    """Each smoke's loss and gradients unsharded, then on the 2×2×2 mesh,
+    where B splits over (pod, data) and T over model, so that a product's
+    rows would split over three mesh dims."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.sharding import (distribute_tree,
+                                               shard_params_spec)
+    from repro_torch.train.step import loss_and_grads
+
+    for arch, over in job["multi_pod"].items():
+        cfg = dataclasses.replace(get_config(arch, reduced=True), **over)
+        params = TF.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        tok = torch.from_numpy(job["multi_pod_tokens"] % cfg.vocab_size)
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        loss, _, grads = loss_and_grads(cfg, params, batch)
+        out[f"{arch}/loss0"] = _to_np(loss)
+        for path, g in _paths(grads):
+            out[f"{arch}/grad0/{path}"] = _to_np(g)
+        dp = distribute_tree(params, shard_params_spec(params, mesh), mesh)
+        loss, _, grads = loss_and_grads(cfg, dp, batch, mesh=mesh)
+        out[f"{arch}/loss"] = _to_np(loss)
+        for path, g in _paths(grads):
+            out[f"{arch}/grad/{path}"] = _to_np(g)
+
+
+def run_multi_pod(rank: int, store_path: str, job: dict,
+                  out_path: str) -> None:
+    """One rank of the 2×2×2 ("pod", "data", "model") mesh of 8."""
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 8),
+                            rank=rank, world_size=8)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2, 2),
+                                mesh_dim_names=("pod", "data", "model"))
+        out: dict = {}
+        _multi_pod(job, mesh, out)
+        if rank == 0:
+            np.savez(out_path + ".tmp.npz", **out)
+            os.replace(out_path + ".tmp.npz", out_path)
+    finally:
+        dist.destroy_process_group()
+
+
 def run(rank: int, store_path: str, job: dict, out_path: str) -> None:
     from torch.distributed.device_mesh import init_device_mesh
     torch.set_num_threads(1)
@@ -113,6 +193,7 @@ def run(rank: int, store_path: str, job: dict, out_path: str) -> None:
                                 mesh_dim_names=("data", "model"))
         out: dict = {}
         _dense(job, mesh, out)
+        _scans(job, mesh, out)
         _moe(job, mesh, out)
         if rank == 0:
             np.savez(out_path + ".tmp.npz", **out)

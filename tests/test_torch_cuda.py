@@ -726,6 +726,43 @@ def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(card):
         ssm_scan_cuda(x, dt, A, B, C[:, :4].contiguous(), D)
 
 
+def _chunked_inputs(kind, dev):
+    gen = torch.Generator().manual_seed(11)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen)
+
+    if kind == "scan":
+        x, B, C = rand(2, 64, 24), rand(2, 64, 8), rand(2, 64, 8)
+        dt = torch.nn.functional.softplus(rand(2, 64, 24) - 1.0)
+        A, D = -torch.exp(0.5 * rand(24, 8)), rand(24)
+        args, fn = (x, dt, A, B, C, D), R.chunked_selective_scan_ref
+    else:
+        r, v = rand(2, 4, 64, 16), rand(2, 4, 64, 16)
+        k, w = 0.3 * rand(2, 4, 64, 16), torch.sigmoid(rand(2, 4, 64, 16) + 2)
+        args, fn = (r, k, v, w, 0.1 * rand(4, 16)), R.chunked_rwkv6_ref
+    n_in = 4 if kind == "rwkv" else 5
+    return fn, [a.to(dev).requires_grad_(i < n_in) for i, a in enumerate(args)]
+
+
+@pytest.mark.parametrize("kind", ["scan", "rwkv"])
+def test_chunked_forms_on_the_card_match_the_cpu(card, kind):
+    """The plain path's chunked scans (what training and the dry run take
+    above chunk_threshold) in fp32 on the card, TF32 off, against the CPU
+    on the same inputs at chunk 16 over 64 steps: outputs, final states and
+    the gradients of a scalar of both within 1e-4."""
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        fn, args = _chunked_inputs(kind, dev)
+        y, h = fn(*args, chunk=16)
+        loss = (y * torch.linspace(-1, 1, y.shape[-1], device=dev)).sum() \
+            + h.square().sum()
+        grads = torch.autograd.grad(loss, [a for a in args if a.requires_grad])
+        out[dev.type] = [t.detach().cpu() for t in (y, h, *grads)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("arch", [a for a in PORTED_IDS if a != "whisper_base"])
 def test_model_kernel_path_matches_plain_path(card, arch):
     """fp32 smoke width: the kernels against the plain path, forward and

@@ -5,6 +5,7 @@ traced cell per kind on a fake 2×2 mesh (records keyed as the
 reference's), the copies of ``ElasticPlanner`` and ``MeshPlan``, and the
 fault-check tools' device default."""
 
+import json
 import math
 
 import numpy as np
@@ -206,27 +207,84 @@ def _reference_record_keys():
     return top, memory, rl
 
 
-@pytest.mark.parametrize("arch,shape", [
-    ("mistral_nemo_12b", "train_4k"), ("mistral_nemo_12b", "prefill_32k"),
-    ("mistral_nemo_12b", "decode_32k"), ("whisper_base", "decode_32k")])
-def test_traced_cell_record(arch, shape, tmp_path):
+MESH_2X2 = ((2, 2), ("data", "model"))
+# the multi-pod mesh's axes at 8 devices: B split over (pod, data) and T
+# over model, the layout whose rows a product flattens over three mesh dims
+MESH_2X2X2 = ((2, 2, 2), ("pod", "data", "model"))
+
+
+# the most counted FLOPs a device may run over the model's FLOPs per
+# device, per cell: the ratio of the cell's trace on 2×2 (attention over
+# the context, which the model FLOPs leave out, and remat's recomputation)
+# with 5% to spare.  A cell on the multi-pod mesh is held to its one-pod
+# ratio, so a mesh dim on which every device repeats the same work fails.
+FLOP_EXCESS = {("mistral_nemo_12b", "train_4k"): 8.8,
+               ("mistral_nemo_12b", "prefill_32k"): 64.2,
+               ("rwkv6_7b", "train_4k"): 1.5,
+               ("jamba_1_5_large_398b", "prefill_32k"): 8.7}
+
+
+def _cell(arch, shape, mesh=MESH_2X2):
+    tag = "" if mesh == MESH_2X2 else "-" + "x".join(map(str, mesh[0]))
+    return pytest.param(arch, shape, mesh, id=f"{arch}-{shape}{tag}")
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [
+    _cell("mistral_nemo_12b", "train_4k"),
+    _cell("mistral_nemo_12b", "prefill_32k"),
+    _cell("mistral_nemo_12b", "decode_32k"),
+    _cell("whisper_base", "decode_32k"),
+    _cell("rwkv6_7b", "train_4k"),
+    _cell("jamba_1_5_large_398b", "prefill_32k"),
+    _cell("mistral_nemo_12b", "train_4k", MESH_2X2X2),
+    _cell("rwkv6_7b", "train_4k", MESH_2X2X2)])
+def test_traced_cell_record(arch, shape, mesh, tmp_path):
+    """One cell traced at smoke size, its record laid out as the
+    reference's: RWKV-6 and Jamba at their assigned T through the chunked
+    scans, and train steps on the multi-pod mesh's three axes; a train or
+    prefill cell's counted FLOPs a device within its stated factor of the
+    model's (``FLOP_EXCESS``)."""
     rec = D.run_cell(arch, shape, False, str(tmp_path), verbose=False,
-                     mesh_shape=((2, 2), ("data", "model")), reduced=True)
+                     mesh_shape=mesh, reduced=True)
     assert rec["status"] == "ok", rec.get("trace")
     top, memory, rl = _reference_record_keys()
     assert set(rec) == top
     assert set(rec["memory"]) == memory
     assert set(rec["roofline"]) == rl
     r = rec["roofline"]
-    assert r["chips"] == 4 and r["flops_global"] > 0
+    n = math.prod(mesh[0])
+    assert r["chips"] == n and r["flops_global"] > 0
     assert r["bytes_global"] > 0 and r["collective_bytes_global"] > 0
+    if (arch, shape) in FLOP_EXCESS:
+        assert r["flops_global"] <= FLOP_EXCESS[arch, shape] \
+            * r["model_flops"], r["flops_global"] / r["model_flops"]
     assert rec["memory"]["argument_size"] > 0
-    assert (tmp_path / f"{arch}__{shape}__2x2.json").exists()
+    name = "x".join(map(str, mesh[0]))
+    assert (tmp_path / f"{arch}__{shape}__{name}.json").exists()
 
 
 def test_skipped_cell_record():
     rec = D.run_cell("gemma_7b", "long_500k", False, None, verbose=False)
     assert rec["status"] == "skip" and "full-attention" in rec["why"]
+
+
+def test_report_lists_both_meshes_and_their_trace_seconds(tmp_path):
+    """The report's roofline rows of each mesh and its seconds-to-trace
+    table, one row per cell with a record on either mesh, the ratio where
+    both meshes have one."""
+    from repro_torch.launch import report
+    for mesh, seconds in (("pod16x16", 40.0), ("pod2x16x16", 60.0)):
+        rec = {"arch": "whisper_base", "shape": "decode_32k", "mesh": mesh,
+               "status": "ok", "tag": "", "seconds": seconds,
+               "memory": {"argument_size": 1e9, "output_size": 0,
+                          "temp_size": 0, "alias_size": 0},
+               "roofline": JR.Roofline("whisper_base", "decode_32k", 256,
+                                       1e12, 1e12, 1e9, 1e12).as_dict()}
+        (tmp_path / f"{mesh}.json").write_text(json.dumps(rec))
+    text = "\n".join(report.render(report.load(str(tmp_path))))
+    assert "## Roofline terms, multi-pod" in text
+    assert text.count("| whisper-base | decode_32k | 1.0 |") == 2
+    assert "| whisper-base | decode_32k | 40.0 | 60.0 | 1.50 |" in text
 
 
 # ---------------------------------------------------------------------------

@@ -240,6 +240,47 @@ def test_with_constraint_redistributes(meshes):
         assert tuple(y.placements) == S.placements(spec, mesh)
 
 
+@pytest.mark.parametrize("shape,axes,rows,local", [
+    ((2, 2), ("data", "model"), (Shard(0), Shard(1)), (4, 2, 5)),
+    ((2, 2, 2), ("pod", "data", "model"),
+     (Shard(0), Shard(0), Shard(0)), (1, 4, 5))])
+def test_product_rows_are_split_over_two_mesh_dims_at_most(shape, axes,
+                                                           rows, local):
+    """In the sharded region a product of the residual stream's layout
+    (B over "batch", T over "seq_model") by a weight: on 2×2 it runs with
+    T split as it is; on 2×2×2, where the rows B·T would split over three
+    mesh dims, T's split moves to B first (B divides), so the output's
+    rows are B split over all three: each device still does an eighth of
+    the product.  (The "fake" group's collectives move no data, so the
+    values are the sharded tests' to check.)"""
+    with fake_group(math.prod(shape)):
+        mesh = shape_mesh(shape, axes)
+        x = S.distribute(torch.zeros(8, 4, 6), mesh,
+                         ("batch", "seq_model", "none"))
+        w = S.distribute(torch.zeros(6, 5), mesh, ("none", "none"))
+        with S.sharded_region(mesh):
+            y = x @ w
+        assert tuple(y.placements) == rows
+        assert y.to_local().shape == local
+
+
+@pytest.mark.parametrize("B,K,moved", [(4, 6, Shard(0)), (2, 6, Shard(2)),
+                                        (2, 3, Replicate())])
+def test_plain_rows_where_dtensor_cannot_view_strided_rows(B, K, moved):
+    """Where DTensor has no view into rows split over B and T (torch 2.11
+    on 16×16), the mesh dim that splits T splits B instead where B
+    divides, else the contracted K, else neither (T gathered)."""
+    with fake_group(4):
+        mesh = shape_mesh((2, 2), ("data", "model"))
+        x = S.distribute(torch.zeros(B, 4, K), mesh,
+                         ("batch", "seq_model", "none"))
+        assert tuple(x.placements) == (Shard(0), Shard(1))
+        view = torch.ops.aten.view.default
+        assert S._plain_rows(view, (x, [B * 4, K])) is None
+        got, _ = S._plain_rows(view, (x, [B * 4, K]), always=True)
+        assert tuple(got.placements) == (Shard(0), moved)
+
+
 # ---------------------------------------------------------------------------
 # twins of tests/test_runtime.py::TestShardingRules
 # ---------------------------------------------------------------------------
@@ -270,3 +311,29 @@ class TestShardingRules:
                 assert len(specs) > 0
                 assert any(any(e is not None for e in s)
                            for s in specs.values())
+
+
+@pytest.mark.parametrize("C,want", [(8, (Shard(0), Shard(2))),
+                                    (3, (Shard(0), Shard(1)))])
+def test_sequence_split_moves_to_channels_on_local_ops(C, want):
+    """Ops across T run on local shards with T whole: the mesh dim that
+    splits T, or that splits the conv weight's channels, splits x's
+    channels instead where they divide (``_seq_to_channels``), as the
+    token shift's does; where they do not, the shift gathers T and keeps
+    B split."""
+    from repro_torch.models import blocks as TB
+    with fake_group(4):
+        mesh = shape_mesh((2, 2), ("data", "model"))
+        x = S.distribute(torch.zeros(4, 6, C), mesh,
+                         ("batch", "seq_model", "none"))
+        assert tuple(x.placements) == (Shard(0), Shard(1))
+        assert tuple(TB._seq_to_channels(x).placements) == want
+        y = TB._shift(x)
+        assert tuple(y.placements) == (want if C % 2 == 0
+                                       else (Shard(0), Replicate()))
+        assert y.to_local().shape == (2, 6, C // 2 if C % 2 == 0 else C)
+        if C % 2 == 0:
+            xr = S.distribute(torch.zeros(4, 6, C), mesh,
+                              ("batch", "none", "none"))
+            w = S.distribute(torch.zeros(4, C), mesh, ("none", "tensor"))
+            assert tuple(TB._seq_to_channels(xr, w).placements) == want

@@ -8,6 +8,15 @@ dispatch, to ``repro`` under its own 4-device mesh).
   every decode step of a teacher-forced then greedy generation (the
   step's ``jit_with``), the loss and every gradient, and one
   ``build_train_step`` step, each with the mesh.
+- Scans: RWKV-6 and Jamba smokes in fp32 with ``chunk_threshold`` 8 and
+  ``scan_chunk`` 4, so that T = 16 takes the chunked recurrence and the
+  chunked selective scan on each device's shards (the token shift and the
+  causal conv with T whole, their inputs' T split moved to channels): the
+  forward, the loss and every gradient.
+- Multi-pod: the RWKV-6, Jamba and Mistral-NeMo smokes' loss and every
+  gradient on a 2×2×2 ("pod", "data", "model") mesh of 8 ranks, where a
+  product's rows B·T would split over three mesh dims and T's split moves
+  to the contracted dim first, held to the port's unsharded step.
 - MoE: ``moe_fwd`` of a DeepSeekMoE smoke at B·T = 8192 (the shard_map
   path) at capacity factor 1.0, where the local capacity drops tokens, and
   its aux loss; the reference runs in a subprocess with 4 host devices.
@@ -42,6 +51,9 @@ DENSE_OVER = dict(dtype="float32", n_kv_heads=1)
 MOE = "deepseek_moe_16b"
 MOE_OVER = dict(dtype="float32", capacity_factor=1.0)
 B, T, TP, NEW = 2, 16, 5, 3
+SCANS = {"rwkv6_7b": dict(dtype="float32", chunk_threshold=8, scan_chunk=4),
+         "jamba_1_5_large_398b": dict(dtype="float32", chunk_threshold=8,
+                                      scan_chunk=4, attn_kv_chunk=4)}
 
 _MOE_REF = r"""
 import sys
@@ -129,10 +141,27 @@ def run():
     ref["step_loss"] = float(jm["loss"])
     ref["step_grad_norm"] = float(jm["grad_norm"])
 
+    # the RWKV-6 and Jamba smokes through their chunked forms, unsharded
+    scans = {}
+    for i, (arch, over) in enumerate(SCANS.items()):
+        scfg = dataclasses.replace(jax_get_config(arch, reduced=True),
+                                   **over)
+        sparams = JTF.init_params(scfg, jax.random.PRNGKey(10 + i))
+        stok = rs.randint(0, scfg.vocab_size, (B, T)).astype(np.int32)
+        sbatch = {"tokens": stok,
+                  "labels": np.roll(stok, -1, axis=1).astype(np.int32)}
+        (sloss, _), sgrads = jax.value_and_grad(JTF.loss_fn, has_aux=True)(
+            sparams, jax.tree.map(jax.numpy.asarray, sbatch), scfg)
+        ref[arch] = {"forward": np.asarray(JTF.forward(sparams, stok,
+                                                       scfg)[0]),
+                     "loss": float(sloss), "grads": dict(_paths(_np(sgrads)))}
+        scans[arch] = {"over": over, "params": _np(sparams),
+                       "batch": sbatch}
+
     job = {"arch": DENSE, "over": DENSE_OVER, "params": _np(params),
            "tokens": tokens, "prompts": prompts, "max_new": NEW,
            "batch": batch, "moe_arch": MOE, "moe_over": MOE_OVER,
-           "moe_p": _np(p), "moe_x": x}
+           "moe_p": _np(p), "moe_x": x, "scans": scans}
     out_path = os.path.join(tmp, "ranks.npz")
     sys.path.insert(0, str(HERE))
     import _sharded_worker
@@ -141,6 +170,26 @@ def run():
     _, err = proc.communicate(timeout=300)
     assert proc.returncode == 0, err[-3000:]
     return ref, dict(np.load(moe_out)), dict(np.load(out_path))
+
+
+MULTI_POD = {"rwkv6_7b": SCANS["rwkv6_7b"],
+             "jamba_1_5_large_398b": SCANS["jamba_1_5_large_398b"],
+             "mistral_nemo_12b": dict(dtype="float32")}
+
+
+@pytest.fixture(scope="module")
+def run_multi_pod():
+    """The 8 ranks' unsharded and multi-pod results, computed once."""
+    tmp = tempfile.mkdtemp()
+    tokens = np.random.RandomState(2).randint(0, 1 << 30, (4, T)).astype(
+        np.int32)
+    job = {"multi_pod": MULTI_POD, "multi_pod_tokens": tokens}
+    out_path = os.path.join(tmp, "ranks.npz")
+    sys.path.insert(0, str(HERE))
+    import _sharded_worker
+    mp.spawn(_sharded_worker.run_multi_pod,
+             args=(os.path.join(tmp, "store"), job, out_path), nprocs=8)
+    return dict(np.load(out_path))
 
 
 def _close(got, want, tol):
@@ -186,6 +235,24 @@ def test_sharded_train_step_matches_reference(run):
                                ref["step_grad_norm"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("arch", list(SCANS))
+def test_sharded_chunked_scans_match_reference(run, arch):
+    """The chunked forms ran on the mesh (counted on each rank), and the
+    forward, the loss and every gradient equal the reference's."""
+    ref, _, got = run
+    assert int(got[f"{arch}/chunked_calls"]) > 0
+    _close(got[f"{arch}/forward"], ref[arch]["forward"], 1e-4)
+    np.testing.assert_allclose(float(got[f"{arch}/loss"]), ref[arch]["loss"],
+                               rtol=1e-5)
+    prefix = f"{arch}/grad/"
+    names = {k[len(prefix):] for k in got if k.startswith(prefix)}
+    assert names == set(ref[arch]["grads"])
+    for name in sorted(names):
+        want = ref[arch]["grads"][name]
+        err = np.abs(got[prefix + name] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (name, err)
+
+
 def test_moe_shard_map_twin_matches_reference_with_drops(run):
     _, moe, got = run
     _close(got["moe_y"], moe["y"], 1e-4)
@@ -195,3 +262,18 @@ def test_moe_shard_map_twin_matches_reference_with_drops(run):
     # result is not the unsharded one (the reference's behaviour)
     assert np.abs(got["moe_y_unsharded"] - moe["y"]).max() > \
         1e-3 * np.abs(moe["y"]).max()
+
+
+@pytest.mark.parametrize("arch", list(MULTI_POD))
+def test_multi_pod_mesh_matches_one_device(run_multi_pod, arch):
+    got = run_multi_pod
+    np.testing.assert_allclose(float(got[f"{arch}/loss"]),
+                               float(got[f"{arch}/loss0"]), rtol=1e-5)
+    names = {k.split("/grad/", 1)[1] for k in got
+             if k.startswith(f"{arch}/grad/")}
+    assert names and names == {k.split("/grad0/", 1)[1] for k in got
+                               if k.startswith(f"{arch}/grad0/")}
+    for name in sorted(names):
+        want = got[f"{arch}/grad0/{name}"]
+        err = np.abs(got[f"{arch}/grad/{name}"] - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (name, err)

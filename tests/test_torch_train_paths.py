@@ -131,6 +131,6 @@ def test_chunked_forms_grads_match_reference(arch, over):
     """Above ``chunk_threshold`` the reference differentiates its chunked
     attention, chunked RWKV-6 recurrence and chunked selective scan (below,
     the associative scan); the port differentiates its streaming attention
-    and its per-step loops, with the same gradients."""
+    and its twins of the chunked forms, with the same gradients."""
     jcfg, jparams, tcfg, tparams = setup_pair(arch, **over)
     check_grads(jcfg, jparams, tcfg, tparams, make_batch(tcfg, 1, 16, seed=7))
