@@ -25,6 +25,11 @@ Phases, each of which stops the run with a non-zero exit on failure:
    at GQA groups 1 / 2 / 4 / 8, S = 4096 and 4097, pos at 0, 100, the
    chunk edges, S/2 and S - 1, windows and softcap, and Gemma-2's 4096
    window over 8192 positions, bf16 also against the fp32 plain version;
+   K2 in bf16 at the full shapes of phases 4g-4k's configs (FULL_PREFILL:
+   prefill at head_dim 256 over 2048 positions and over 8192 with
+   Gemma-2's window 4096 and softcap 50, GQA groups 16 and 5;
+   FULL_DECODE: decode at batch 4 over 4096 positions at groups 16 and 5
+   and head_dim 256 at group 1), within 3e-2 and the row-relative gate;
    the RWKV-6 recurrence
    over dtype / head size / (B, H) / ragged T, and over the whole range of
    decays (w = 0, w = 1e-30, w = 1, strong and mild mixed in one chunk),
@@ -73,11 +78,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
       reference): the micro-bench's 512^3 fp32 product and Mistral-NeMo's
       up-projection at T = 2048 in bf16, the latter checked to have gone to
       the wgmma kernel as the library reports it;
+   g-k. (SERVED_WIDE) Gemma-7B, GLM-4-9B, Gemma-2-9B, DeepSeek-MoE-16B at
+      full width and depth and Llama-4-Scout at full width on 12 of its 48
+      layers (the whole model, 200.74 GiB in bf16, exceeds the card), as in
+      a: ``forward`` on 2048 positions (Gemma-2 on 8192, so that its
+      windowed layers skip kv blocks), K2 prefill once a layer, and
+      ``generate`` (batch 4, prompt 16, 24 new; the MoE ones at their
+      configured capacity factor, which drops tokens in a decode step),
+      K2 decode once a layer and step, captured tokens equal to the eager
+      step's, the replay beside the eager step, its device-busy time, the
+      weight-read bound and the peak memory;
 5. fp32 consistency at Mistral-NeMo and RWKV-6 width (depth 2), at Jamba
    width (Mamba, Mamba + MoE and attention layers, capacity factor 8.0),
    at Whisper-base's full width and at Phi-3-vision's width (depth 2, with
-   the prefix): teacher-forced decode steps against the forward, and the
-   forward through the kernels against the plain path on the card;
+   the prefix), and at the width of each of phases 4g-4k's configs (depth
+   2; Gemma-2 one period, a windowed and a global layer; the MoE ones at
+   capacity factor E / k, which drops nothing): teacher-forced decode
+   steps against the forward, and the forward through the kernels against
+   the plain path on the card;
 6. Gemma-2 smoke width (window, softcap, post-norms, tied head) and Jamba
    smoke width in fp32 at its own capacity factor (MoE drops in decode)
    through ``generate``, kernels against the plain path;
@@ -90,6 +108,9 @@ Phases, each of which stops the run with a non-zero exit on failure:
    tile's time at each, K2 prefill also at Phi-3-vision's, Whisper's
    encoder and Whisper's cross-attention step shapes, with every built
    tile's time at each and the output also held to the fp32 plain version;
+   K2 prefill also at FULL_PREFILL's shapes and K2 decode at
+   FULL_DECODE's, each as a CUDA graph beside SDPA (over the same keys;
+   without the softcap, which SDPA does not take) and its bound;
    K2 decode at Mistral-NeMo's, Phi-3-vision's, Jamba's, Gemma-2's
    (window 4096 over 8192) and phase 4's (40 positions) shapes, the kernel
    and SDPA timed as CUDA graphs (the eager calls are paced by the host);
@@ -253,6 +274,15 @@ GEMM_CASES = ((32, 64, 32), (64, 32, 48), (16, 16, 128), (33, 70, 45),
 GEMM_EDGES = ((200, 328, 392), (130, 40, 264), (33, 136, 520),
               (1, 2000, 1000), (64, 8, 136), (129, 72, 8), (512, 512, 512),
               (2176, 200, 4104))
+# phase 4g-4k: (phase, config, seed, forward's T, layers kept or None).
+# Gemma-2's forward takes 8192 positions, so that its 21 windowed layers
+# skip kv blocks (window 4096); Llama-4-Scout (200.74 GiB in bf16) keeps 12
+# of its 48 identical layers (53.1 GiB), as phase 4c cuts Jamba
+SERVED_WIDE = (("4g", "gemma_7b", 20, 2048, None),
+               ("4h", "glm4_9b", 21, 2048, None),
+               ("4i", "gemma2_9b", 22, 8192, None),
+               ("4j", "deepseek_moe_16b", 23, 2048, None),
+               ("4k", "llama4_scout_17b_a16e", 24, 2048, 12))
 # K2 prefill edge cases, (B, Hq, Hkv, Tq, Tk, D, causal, window, softcap,
 # offset); tests/test_torch_cuda.py holds the same
 EDGE_CASES = (
@@ -267,6 +297,17 @@ EDGE_CASES = (
     (2, 8, 4, 200, 200, 256, True, None, 50.0, 0),
     (1, 4, 2, 77, 130, 256, False, 30, 30.0, 0),
 )
+# K2 at the full shapes of the configs phase 4g-4k serves: prefill
+# (tag, B, Hq, Hkv, T, D, window, softcap), causal, and decode (tag, Hq,
+# Hkv, D) at batch 4 over a 4096-position cache, at the groups and head_dim
+# the other cases do not reach (16: two blocks of 8 rows a group; 5: one
+# block of 8 with 3 rows padded; head_dim 256 at group 1)
+FULL_PREFILL = (("Gemma-7B", 1, 16, 16, 2048, 256, None, None),
+                ("Gemma-2", 1, 16, 8, 8192, 256, 4096, 50.0),
+                ("GLM-4", 1, 32, 2, 2048, 128, None, None),
+                ("Llama-4-Scout", 1, 40, 8, 2048, 128, None, None))
+FULL_DECODE = (("GLM-4", 32, 2, 128), ("Llama-4-Scout", 40, 8, 128),
+               ("Gemma-7B", 16, 16, 256))
 
 
 def log(msg: str) -> None:
@@ -800,6 +841,44 @@ def main() -> int:
                 f"max_abs_err {max(errs):.3e}"
                 + (f", rel_err at most {max(rel):.3e} (tol "
                    f"{BF16_REL_TOL:g})" if rel else ""))
+    # K2 at the full shapes of phase 4g-4k's configs, bf16 (the dtype they
+    # serve in): prefill through ops.flash_attention (the picked tile)
+    # within 3e-2 and the row-relative gate, every head; decode split across
+    # blocks at pos 0, 100, the chunk edges, S/2 and S - 1
+    for tag, Bf, Hq, Hkv, T, D, window, cap in FULL_PREFILL:
+        q = rand(Bf, Hq, T, D, dtype=torch.bfloat16)
+        k, v = (rand(Bf, Hkv, T, D, dtype=torch.bfloat16) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = ops.flash_attention(q, k, v, **kw)
+        name = (f"prefill bf16 at the {tag} shape B={Bf} H=({Hq},{Hkv}) T={T} "
+                f"D={D} window={window} softcap={cap} tiles="
+                f"{autotile.attention_tiles(T, T, D, 2)}")
+        check_close(name, got, R.attention_ref(q, k, v, **kw), BF16_TOL)
+        check_rel(name, got, q, k, v, kw)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    for tag, Hq, Hkv, D in FULL_DECODE:
+        S, Bd = 4096, 4
+        q = rand(Bd, Hq, 1, D, dtype=torch.bfloat16)
+        k, v = (rand(Bd, Hkv, S, D, dtype=torch.bfloat16) for _ in range(2))
+        L, splits = autotile.decode_splits(Bd, Hkv, Hq // Hkv, S, D, 2)
+        name = (f"decode bf16 at the {tag} shape B={Bd} H=({Hq},{Hkv}) D={D} "
+                f"S={S} rows={autotile.decode_rows(Hq // Hkv)} chunk={L} "
+                f"splits={splits}")
+        errs, rel = [], []
+        for pos in sorted({0, 100, L - 1, L, S // 2, S - 1}):
+            pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+            got = ops.decode_attention(q, k, v, pos=pos_t)
+            errs.append(check_close(
+                f"{name} pos={pos}", got,
+                R.decode_attention_ref(q, k, v, pos=pos), BF16_TOL,
+                quiet=True))
+            rel.append(check_rel(f"{name} pos={pos}", got, q, k, v,
+                                 dict(causal=True, offset=pos), quiet=True))
+        log(f"  {name}: pos 0, 100, L-1, L, S/2, S-1 within {BF16_TOL:g}, "
+            f"max_abs_err {max(errs):.3e}, rel_err at most {max(rel):.3e} "
+            f"(tol {BF16_REL_TOL:g})")
+        del q, k, v
     # the RWKV-6 recurrence: o at the dtype's tolerance; S_last is fp32 from
     # the same rounded inputs on both sides, so it is held at the scan's;
     # bf16 (the tensor-core kernel, every call checked) also within one ulp
@@ -895,6 +974,7 @@ def main() -> int:
         since reset()."""
         return tuple(c.launches for c in counters)
 
+    t4 = time.perf_counter()
     # a. Mistral-NeMo-12B: K2 prefill once per layer in forward, K2 decode
     #    once per layer and step in generate (one split: the cache holds
     #    40 positions); then decode steps over a 4096-position cache, where
@@ -1002,6 +1082,43 @@ def main() -> int:
         check_gemm(f"ops.gemm ({x.shape[0]}x{x.shape[1]})@({w.shape[0]}x"
                    f"{w.shape[1]}) {str(x.dtype)[6:]}", out, x, w)
     del operands, outs
+    log(f"phase 4a-4f done in {time.perf_counter() - t4:.1f}s")
+
+    # g-k. the five configs not served above, at full width: K2 prefill
+    #      once per layer in forward, K2 decode once per layer and step in
+    #      generate; MoE layers run their experts on the plain products
+    #      (no kernel), at the configured capacity factor
+    t4 = time.perf_counter()
+    for phase, arch, seed, T, cut in SERVED_WIDE:
+        whole = get_config(arch)
+        wcfg_ = (whole if cut is None
+                 else dataclasses.replace(whole, n_periods=cut))
+        n = wcfg_.n_layers
+        windows = sorted({str(s.window) for s in wcfg_.layer_pattern})
+        log(f"phase {phase} main path: {wcfg_.name} d_model={wcfg_.d_model} "
+            f"heads=({wcfg_.n_heads},{wcfg_.n_kv_heads})x{wcfg_.hd} "
+            f"d_ff={wcfg_.d_ff} vocab={wcfg_.vocab_size} windows={windows} "
+            f"softcap={wcfg_.attn_softcap}/{wcfg_.final_softcap} "
+            f"post_norm={wcfg_.post_block_norm} act={wcfg_.activation} "
+            f"glu={wcfg_.glu} tied={wcfg_.tie_embeddings} "
+            f"scaled={wcfg_.scale_embeddings} rope_theta={wcfg_.rope_theta}"
+            + (f" experts={wcfg_.n_experts} top-{wcfg_.top_k} shared="
+               f"{wcfg_.n_shared_experts} d_ff_expert={wcfg_.d_ff_e} "
+               f"capacity_factor={wcfg_.capacity_factor} (decode at batch "
+               f"4: {blocks.moe_capacity(wcfg_, 4)} slot an expert)"
+               if wcfg_.n_experts else "")
+            + f" depth {n} of {whole.n_layers} dtype={wcfg_.dtype}")
+        if cut is not None:
+            log(f"  cut: the first {n} of {whole.n_layers} layers: the whole "
+                f"model is {whole.n_params() / 1e9:.2f}B parameters, "
+                f"{whole.n_params() * 2 / 2**30:.2f} GiB in bf16, more than "
+                f"the card holds; {n} layers are "
+                f"{wcfg_.n_params() * 2 / 2**30:.2f} GiB, every layer of "
+                "the same kind (attention + MoE with a shared expert)")
+        _serve(wcfg_, seed, dev, gen, reset, launches,
+               want_fwd=(n, 0, 0, 0, 0),
+               want_gen=lambda steps, n=n: (0, n * steps, 0, 0, 0), T=T)
+    log(f"phase 4g-4k done in {time.perf_counter() - t4:.1f}s")
 
     # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
     log("phase 5 fp32 consistency (tol 1e-3: cuBLAS sums in another order "
@@ -1047,6 +1164,18 @@ def main() -> int:
                     "kernel vs plain", lk, lr, 1e-3)
     del params, lk, lr
     torch.cuda.empty_cache()
+    log("  (phase 4g-4k's configs at full width, depth 2: Gemma-2 one "
+        "period, a windowed and a global layer; the MoE ones at capacity "
+        "factor E / k, at which every capacity is the token count: 8.0 "
+        "leaves Llama-4-Scout's top-1 of 16 experts one slot an expert in "
+        "a decode step at batch 2, so a decode step could drop a token)")
+    for _, arch, seed, _, _ in SERVED_WIDE:
+        whole = get_config(arch)
+        over = dict(n_periods=2 // len(whole.layer_pattern), dtype="float32")
+        if whole.n_experts:
+            over["capacity_factor"] = whole.n_experts / whole.top_k
+        _consistency(dataclasses.replace(whole, **over), seed + 10, dev, gen,
+                     reset, launches, want_fwd=(2, 0, 0, 0, 0))
 
     # ---- 6. gemma2_9b smoke width through generate --------------------------
     cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
@@ -1156,40 +1285,53 @@ def main() -> int:
     # time so that the intensity objective's pick can be judged.  4·D flops
     # per unmasked (q, k) pair; q, k, v read and o written once
     Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    for tag, Bp, Hp, Hkvp, Tqp, Tkp, Dp, causal in (
+    for tag, Bp, Hp, Hkvp, Tqp, Tkp, Dp, causal, *extra in (
             ("Mistral-NeMo", 1, Hq, Hkv, 2048, 2048, D, True),
             ("Phi-3-vision", 1, pcfg.n_heads, pcfg.n_kv_heads, 2048, 2048,
              pcfg.hd, True),
             ("Whisper encoder", 4, wcfg.n_heads, wcfg.n_kv_heads,
              wcfg.enc_seq_len, wcfg.enc_seq_len, wcfg.hd, False),
             ("Whisper cross-attention step", 4, wcfg.n_heads,
-             wcfg.n_kv_heads, 1, wcfg.enc_seq_len, wcfg.hd, False)):
+             wcfg.n_kv_heads, 1, wcfg.enc_seq_len, wcfg.hd, False),
+            *((tag, Bf, Hf, Hkvf, Tf, Tf, Df, True, window, cap)
+              for tag, Bf, Hf, Hkvf, Tf, Df, window, cap in FULL_PREFILL)):
+        window, cap = (tuple(extra) + (None, None))[:2]
         q = rand(Bp, Hp, Tqp, Dp, dtype=bf)
         k, v = (rand(Bp, Hkvp, Tkp, Dp, dtype=bf) for _ in range(2))
         bq, bk = autotile.attention_tiles(Tqp, Tkp, Dp, q.element_size())
-        kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk,
-                                            causal=causal)
-        plain = lambda: R.attention_ref(q, k, v, causal=causal)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        kern = lambda: flash_attention_cuda(q, k, v, bq=bq, bk=bk, **kw)
+        plain = lambda: R.attention_ref(q, k, v, **kw)
         got = kern()
         err = check_close(f"prefill at the {tag} shape", got, plain(),
                           BF16_TOL)
-        check_rel(f"prefill at the {tag} shape", got, q, k, v,
-                  dict(causal=causal))
+        check_rel(f"prefill at the {tag} shape", got, q, k, v, kw)
         del got
-        pairs = Tqp * (Tqp + 1) / 2 if causal else Tqp * Tkp
+        pairs = (Tqp * Tkp if not causal else Tqp * (Tqp + 1) / 2
+                 if window is None else
+                 sum(min(i + 1, window) for i in range(Tqp)))
         flops = 4 * Bp * Hp * Dp * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
         b_ms, b_by = bound(flops, nbytes, 2)
+        # SDPA takes no softcap, so the windowed shape's library call is
+        # timed over the same keys (the window as a boolean mask) without it
+        lib = (_sdpa(q, k, v, causal=causal) if window is None else
+               _sdpa_window(q, k, v, window))
         row = _row("flash_attention_prefill",
                    fwd_launches[0] if tag == "Mistral-NeMo" else None, err,
-                   kern, plain, _sdpa(q, k, v, causal=causal), b_ms, b_by,
+                   kern, plain, lib, b_ms, b_by,
                    f"{tag}: B={Bp} Hq={Hp} Hkv={Hkvp} Tq={Tqp} Tk={Tkp} "
-                   f"D={Dp} causal={causal} tiles=({bq},{bk})", **FLASH)
+                   f"D={Dp} causal={causal} window={window} softcap={cap} "
+                   f"tiles=({bq},{bk})"
+                   + ("" if window is None else "; library without the "
+                      "softcap, the window as a mask")
+                   + ("; ms and library ms as CUDA graphs" if extra else ""),
+                   graph=bool(extra), **FLASH)
         log(f"    {flops / row['ms'] / 1e9:.1f} TFLOP/s, "
             f"{b_ms / row['ms'] * 100:.1f}% of the bound")
         for tb, tk in autotile.attention_built_tiles(Dp, q.element_size()):
             ms = time_ms(lambda: flash_attention_cuda(q, k, v, bq=tb, bk=tk,
-                                                      causal=causal))
+                                                      **kw))
             picked = " (picked)" if (tb, tk) == (bq, bk) else ""
             log(f"    tiles ({tb},{tk}){picked}: {ms:.4f} ms, "
                 f"{flops / ms / 1e9:.1f} TFLOP/s")
@@ -1214,7 +1356,9 @@ def main() -> int:
              4095, None),
             ("Gemma-2 window", g2.n_heads, g2.n_kv_heads, g2.hd, 8192, 8191,
              g2.layer_pattern[0].window),
-            ("phase 4 generate", Hq, Hkv, D, 40, 39, None)):
+            ("phase 4 generate", Hq, Hkv, D, 40, 39, None),
+            *((tag, Hf, Hkvf, Df, 4096, 4095, None)
+              for tag, Hf, Hkvf, Df in FULL_DECODE)):
         Bd = 4
         q = rand(Bd, Hqd, 1, Dd, dtype=bf)
         k, v = rand(Bd, Hkvd, S, Dd, dtype=bf), rand(Bd, Hkvd, S, Dd,
@@ -1380,9 +1524,9 @@ def main() -> int:
 
 
 def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
-           prefix=0, then=None):
+           prefix=0, then=None, T=2048):
     """One main path: ``cfg`` at full width with random weights from
-    ``seed``, ``forward`` on 2048 positions (``prefix`` random patch
+    ``seed``, ``forward`` on ``T`` positions (``prefix`` random patch
     embeddings, then tokens) and ``generate`` (batch 4, prompt 16, 24 new),
     each between ``reset()`` and ``launches()``, which must read
     ``want_fwd`` and ``want_gen(decode steps)``, its tokens those of the
@@ -1404,7 +1548,6 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
         f"parameters, {weight_bytes / 2**30:.2f} GiB, "
         f"{time.perf_counter() - t0:.1f}s")
     with torch.inference_mode():
-        T = 2048
         prompt = torch.randint(0, cfg.vocab_size, (1, T - prefix),
                                generator=gen, device=dev, dtype=torch.int32)
         pre = (torch.randn((1, prefix, cfg.d_model), generator=gen,
@@ -1425,6 +1568,7 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
         if logits.shape != (1, T, cfg.vocab_size) or \
                 not torch.isfinite(logits).all():
             fail(f"{cfg.name} forward logits: wrong shape or non-finite")
+        fwd_peak = torch.cuda.max_memory_allocated() / 2**30
         del logits
         mm_flops = _weight_flops(cfg, T)
         log(f"  forward B=1 T={T} (prefix {prefix}): {fwd_ms:.1f} ms "
@@ -1482,7 +1626,7 @@ def _serve(cfg, seed, dev, gen, reset, launches, *, want_fwd, want_gen,
                                 gen_launches=gen_launches,
                                 replay_ms=replay_ms, seed=seed, T=T)
         log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-            "GiB")
+            f"GiB ({fwd_peak:.2f} GiB by the end of the forward)")
         if then is not None:
             then(params)
     del params
@@ -1962,6 +2106,17 @@ def _sdpa(q, k, v, causal):
     """One PyTorch call computing the same attention (the yardstick)."""
     import torch.nn.functional as F
     return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)
+
+
+def _sdpa_window(q, k, v, window):
+    """SDPA over the keys a causal ``window`` keeps, as a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    i = torch.arange(q.shape[2], device=q.device)[:, None]
+    j = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
 
@@ -2720,14 +2875,15 @@ def _dse(dev, smi: str) -> None:
 # model's FLOPs per device: the larger of the cell's ratios under torch 2.13
 # (on the CPU) and 2.11 (this machine's), with 5% to spare.  The ratios
 # hold attention over the context, which the model FLOPs leave out, and
-# remat's recomputation (train_4k: 4.142 and 3.513; decode_32k 225.4 and
-# long_500k 1156.9 under both; rwkv6 1.394 and 1.650, where torch 2.11
-# runs one layer's channel mix on every device of "model").  A mesh dim on
-# which every device repeats the same work fails the cell.
-DRYRUN_CELLS = (("mistral_nemo_12b", "train_4k", 4.35),
-                ("mistral_nemo_12b", "decode_32k", 237.0),
+# remat's recomputation (train_4k 1.616 and 1.312; decode_32k 14.973,
+# long_500k 1156.935 and rwkv6 1.292 under both, since local_call splits
+# a mesh dim it would otherwise leave repeating the work and each device
+# holds its q heads and their kv head).  A mesh dim on which every device
+# repeats the same work fails the cell.
+DRYRUN_CELLS = (("mistral_nemo_12b", "train_4k", 1.70),
+                ("mistral_nemo_12b", "decode_32k", 15.7),
                 ("jamba_1_5_large_398b", "long_500k", 1215.0),
-                ("rwkv6_7b", "train_4k", 1.73))
+                ("rwkv6_7b", "train_4k", 1.36))
 SHARD_LOSS_RTOL = 1e-5
 
 

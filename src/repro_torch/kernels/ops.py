@@ -20,9 +20,11 @@ the reference asserts multiples of its 128-wide blocks).
 A wrapper given DTensors (the model under a ``DeviceMesh``) runs on each
 device's shards (:func:`repro_torch.parallel.sharding.local_call`): the
 kernel, or on the CPU the plain version, takes the local tensors where the
-op is independent along every sharded dim — batch and heads for
+op is independent along every sharded dim — batch and heads for decode
 attention, batch and channels for the scan and the recurrence, rows and
 columns for the GEMM — and any other sharded dim is gathered first.
+Prefill attention takes plain tensors: the models lay its shards out
+themselves.
 """
 
 from __future__ import annotations
@@ -90,10 +92,9 @@ _BHTD = ("b", "c", None, None)
 
 def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
                     scale=None, offset: int = 0) -> torch.Tensor:
-    if isinstance(q, DTensor):
-        fn = functools.partial(flash_attention, causal=causal, window=window,
-                               softcap=softcap, scale=scale, offset=offset)
-        return local_call(fn, (q, k, v), (_BHTD,) * 3, (_BHTD,))
+    """Prefill attention on plain tensors; the models call it on each
+    device's shards themselves (``models.blocks._local``: under a mesh a
+    causal call's query rows may split, each shard at its offset)."""
     if q.device.type == "cpu":
         return R.attention_ref(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale, offset=offset)

@@ -118,9 +118,12 @@ def chunked_attention_ref(q, k, v, *, causal: bool = True,
                           window: int | None = None,
                           softcap: float | None = None,
                           scale: float | None = None,
-                          kv_chunk: int = 1024) -> torch.Tensor:
+                          kv_chunk: int = 1024,
+                          offset: int = 0) -> torch.Tensor:
     """Streaming attention in plain PyTorch: a loop over KV chunks with
-    running (max, sum, acc) — O(T·chunk) score memory instead of O(T²)."""
+    running (max, sum, acc) — O(T·chunk) score memory instead of O(T²).
+    ``offset`` is the absolute position of q's row 0 (k's column 0 at 0),
+    as in :func:`attention_ref`."""
     B, Hq, Tq, D = q.shape
     _, Hkv, Tk, _ = k.shape
     g = Hq // Hkv
@@ -130,7 +133,7 @@ def chunked_attention_ref(q, k, v, *, causal: bool = True,
         raise ValueError(f"Tk={Tk} is not a multiple of kv_chunk={kv_chunk}")
     dev = q.device
     qg = q.float().reshape(B, Hkv, g, Tq, D)
-    qpos = torch.arange(Tq, device=dev)
+    qpos = torch.arange(Tq, device=dev) + offset
 
     m = torch.full((B, Hkv, g, Tq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, g, Tq), dtype=torch.float32, device=dev)

@@ -39,13 +39,45 @@ BACKENDS = ("kernel", "ref")
 # "c" heads or channels (the op is independent along both), None whole
 _BHTD = ("b", "c", None, None)
 _ATTN = dict(roles=(_BHTD,) * 3, out_roles=(_BHTD,))
+# causal attention: q's rows ("t") may split too, each device's at the
+# offset of its first row (k and v then whole on each device)
+_QROWS = ("b", "c", "t", None)
+_CAUSAL = dict(roles=(_QROWS, _BHTD, _BHTD), out_roles=(_QROWS,),
+               free=("b", "c", "t"), offset="offset")
 
 
-def _local(fn, args, roles, out_roles, **kw):
+def _local(fn, args, roles, out_roles, free=("b", "c"), offset=None,
+           **kw):
     """``fn(*args, **kw)``, on each device's shards when the arguments are
     DTensors (:func:`repro_torch.parallel.sharding.local_call`)."""
     return local_call(functools.partial(fn, **kw) if kw else fn, args,
-                      roles, out_roles)
+                      roles, out_roles, free, offset)
+
+
+def _kv_for_heads(qh, kh, vh):
+    """k and v (B, Hkv, T, D) for q (B, Hq, T, D) split over its heads by
+    some mesh dims: where Hkv does not divide the ways q's heads are split,
+    each kv head is repeated so that each device holds its q heads and
+    their kv head, as GSPMD lays the reference's attention out; otherwise
+    (or without a mesh) k and v as they are.  The repeat keeps GQA's
+    pairing: q head h reads kv head h // (Hq / Hkv) either way."""
+    if not isinstance(qh, DTensor):
+        return kh, vh
+    mesh = qh.device_mesh
+    ways = math.prod(mesh.shape[i] for i, pl in enumerate(qh.placements)
+                     if pl == Shard(1))
+    Hq, Hkv = qh.shape[1], kh.shape[1]
+    if ways == 1 or Hkv % ways == 0:
+        return kh, vh
+    rep = ways // math.gcd(Hkv, ways)
+    if Hq % (Hkv * rep):
+        return kh, vh
+
+    def repeat(t):
+        B, _, T, D = t.shape
+        return t[:, :, None].expand(B, Hkv, rep, T, D).reshape(
+            B, Hkv * rep, T, D)
+    return repeat(kh), repeat(vh)
 
 
 def vocab_parallel_embed(tokens, table):
@@ -139,16 +171,17 @@ def attn_fwd(cfg: ModelConfig, spec: BlockSpec, p, x, positions,
     # (B, H, T, D) layout for the kernel
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     qh = with_constraint(qh, mesh, ("batch", "tensor", "none", "none"))
+    kh, vh = _kv_for_heads(qh, kh, vh)
     kw = dict(causal=True, window=spec.window, softcap=cfg.attn_softcap)
     plain = backend == "ref" or x.device.type == "cpu"
     if plain and cfg.chunk_threshold and T >= cfg.chunk_threshold:
-        o = _local(R.chunked_attention_ref, (qh, kh, vh), **_ATTN,
+        o = _local(R.chunked_attention_ref, (qh, kh, vh), **_CAUSAL,
                    kv_chunk=cfg.attn_kv_chunk, **kw)
     elif backend == "ref":
-        o = _local(R.attention_ref, (qh, kh, vh), **_ATTN, **kw)
+        o = _local(R.attention_ref, (qh, kh, vh), **_CAUSAL, **kw)
     else:
         # on a card the kernel takes every T
-        o = ops.flash_attention(qh, kh, vh, **kw)
+        o = _local(ops.flash_attention, (qh, kh, vh), **_CAUSAL, **kw)
     # contiguous before the merge of heads (the copy reshape makes anyway):
     # DTensor's backward of that reshape is a view
     o = o.transpose(1, 2).contiguous().reshape(B, T, cfg.n_heads * cfg.hd)

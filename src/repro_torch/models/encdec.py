@@ -24,7 +24,7 @@ from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
 from ..kernels import ref as R
-from ..parallel.sharding import sharded_region
+from ..parallel.sharding import sharded_region, vocab_product
 from . import blocks as B
 from .common import BlockSpec, ModelConfig, check_device, make_dense, rms_norm
 from .transformer import _check_backend, _period, _tokens_in, _unbind
@@ -74,15 +74,18 @@ def init_params_encdec(cfg: ModelConfig,
     }
 
 
+# non-causal attention's roles for local_call: q's rows may split too
+_NONCAUSAL = dict(roles=(B._QROWS, B._BHTD, B._BHTD),
+                  out_roles=(B._QROWS,), free=("b", "c", "t"))
+
+
 def _attend(p, x, q, k, v, backend: str):
     """Non-causal attention of q (B, T, Hq, hd) over k/v (B, Tk, Hkv, hd),
     then the output projection and the residual."""
     Bsz, T, _ = x.shape
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    if backend == "ref":
-        o = B._local(R.attention_ref, (qh, kh, vh), **B._ATTN, causal=False)
-    else:
-        o = ops.flash_attention(qh, kh, vh, causal=False)
+    fn = R.attention_ref if backend == "ref" else ops.flash_attention
+    o = B._local(fn, (qh, kh, vh), **_NONCAUSAL, causal=False)
     return (x + o.transpose(1, 2).contiguous().reshape(Bsz, T, -1)
             @ p["wo"]["w"])
 
@@ -130,9 +133,9 @@ def encode(params, enc_embeds, cfg: ModelConfig, backend: str = "kernel",
         return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
 
-def _logits(params, x, cfg: ModelConfig):
+def _logits(params, x, cfg: ModelConfig, mesh=None):
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return x @ params["lm_head"]["w"].to(x.dtype)
+    return vocab_product(x, params["lm_head"]["w"].to(x.dtype), mesh)
 
 
 def forward_encdec(params, tokens, enc_embeds, cfg: ModelConfig,
@@ -149,7 +152,7 @@ def forward_encdec(params, tokens, enc_embeds, cfg: ModelConfig,
             x = B.attn_fwd(cfg, _SELF, p["self"], x, positions, backend, mesh)
             x = _cross_attn(cfg, p["cross"], x, enc_out, backend)
             x = B.mlp_fwd(cfg, p["ffn"], x, mesh)
-        return _logits(params, x, cfg)
+        return _logits(params, x, cfg, mesh)
 
 
 def loss_fn_encdec(params, batch, cfg: ModelConfig, backend: str = "ref",

@@ -28,6 +28,7 @@ axes in mesh order, and :func:`placements` asserts it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import re
 from dataclasses import dataclass
@@ -274,7 +275,7 @@ def _mesh_of(args):
     return None
 
 
-def local_call(fn, args, roles, out_roles, free=("b", "c")):
+def local_call(fn, args, roles, out_roles, free=("b", "c"), offset=None):
     """``fn(*args)`` where ``fn`` is independent along the dims whose role
     is in ``free``; with DTensor arguments, on each device's shards.
 
@@ -282,7 +283,13 @@ def local_call(fn, args, roles, out_roles, free=("b", "c")):
     ``fn`` needs whole); ``out_roles`` the same per output.  The first
     argument's layout decides: each mesh dim that shards one of its dims
     of a free role keeps sharding that role in every argument that has it
-    (when every such dim divides), and every other mesh dim is gathered.
+    (when every such dim divides).  Every other mesh dim would repeat
+    ``fn``'s work on each of its devices, so it splits the first role of
+    ``free`` that every argument having it still divides, and is gathered
+    only where none does.  ``offset`` names the keyword through which
+    ``fn`` takes the position of its first row along role ``"t"`` (a
+    causal attention's queries): where mesh dims split ``"t"``, each device
+    adds its shard's start to it.
     The arguments are redistributed to that layout, ``fn`` runs on their
     local tensors, and the outputs are DTensors laid out the same way (all
     through DTensor's differentiable ``to_local``/``from_local``).  An
@@ -311,6 +318,25 @@ def local_call(fn, args, roles, out_roles, free=("b", "c")):
         else:
             r = None
         role_of.append(r)
+    for i, r in enumerate(role_of):
+        if r is not None or mesh.shape[i] == 1:
+            continue
+        for r in free:
+            n = count.get(r, 1) * mesh.shape[i]
+            having = [a.shape[rs.index(r)] for a, rs in zip(args, roles)
+                      if isinstance(a, torch.Tensor) and r in rs]
+            if having and all(size % n == 0 for size in having):
+                count[r], role_of[i] = n, r
+                break
+
+    if offset is not None and "t" in role_of:
+        start = 0
+        for i, r in enumerate(role_of):          # major mesh dim first
+            if r == "t":
+                start = start * mesh.shape[i] + mesh.get_local_rank(i)
+        rows = lead.shape[roles[0].index("t")] // count["t"]
+        base = getattr(fn, "keywords", {}).get(offset, 0)
+        fn = functools.partial(fn, **{offset: base + start * rows})
 
     def layout(rs):
         return tuple(Shard(rs.index(r)) if r is not None and r in rs
@@ -400,6 +426,23 @@ def _plain_rows(func, args, always: bool = False):
     want = tuple(to if i in later else pl
                  for i, pl in enumerate(a.placements))
     return (_contiguous_local(a.redistribute(mesh, want)), *args[1:])
+
+
+def vocab_product(x, w, mesh):
+    """x (B, T, K) @ w (K, V).  Where the ``vocab`` axes do not divide V,
+    on each device's own rows (:func:`local_call`: B and T split over
+    every mesh dim they divide, w whole), so that the product and both
+    products of its backward run on each device's share of the rows (w's
+    gradient a partial sum).  Left to DTensor, torch 2.11 hands the
+    cross-entropy's gradient over an uneven split of V back whole, and
+    every device of that mesh dim repeats the weight gradient's
+    product."""
+    if mesh is None or not isinstance(x, DTensor) or x.ndim != 3 or (
+            logical_to_spec(("vocab",), (w.shape[-1],), mesh) != Spec(None)):
+        return x @ w
+    rows = ("b", "t", None)
+    return local_call(torch.matmul, (x, w), (rows, (None, None)), (rows,),
+                      free=("b", "t"))
 
 
 def _contiguous_local(a):

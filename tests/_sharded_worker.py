@@ -141,8 +141,11 @@ def _moe(job, mesh, out):
 def _multi_pod(job, mesh, out):
     """Each smoke's loss and gradients unsharded, then on the 2×2×2 mesh,
     where B splits over (pod, data) and T over model, so that a product's
-    rows would split over three mesh dims."""
+    rows would split over three mesh dims (and where neither a batch row
+    nor a head is left for model to split, the attention's query rows
+    split over it)."""
     from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as TF
     from repro_torch.parallel.sharding import (distribute_tree,
                                                shard_params_spec)
@@ -150,9 +153,15 @@ def _multi_pod(job, mesh, out):
 
     for arch, over in job["multi_pod"].items():
         cfg = dataclasses.replace(get_config(arch, reduced=True), **over)
-        params = TF.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        init = (ED.init_params_encdec if cfg.is_encoder_decoder
+                else TF.init_params)
+        params = init(cfg, torch.Generator().manual_seed(0), "cpu")
         tok = torch.from_numpy(job["multi_pod_tokens"] % cfg.vocab_size)
         batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        if cfg.is_encoder_decoder:
+            batch["enc_embeds"] = torch.randn(
+                (tok.shape[0], cfg.enc_seq_len, cfg.d_model),
+                generator=torch.Generator().manual_seed(1))
         loss, _, grads = loss_and_grads(cfg, params, batch)
         out[f"{arch}/loss0"] = _to_np(loss)
         for path, g in _paths(grads):

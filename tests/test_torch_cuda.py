@@ -179,6 +179,52 @@ def test_bf16_prefill_holds_to_fp32_plain_at_main_path_shapes(
     _assert_rel(got, q, k, v, causal=causal)
 
 
+@pytest.mark.parametrize("B,Hq,Hkv,T,D,window,softcap", [
+    (1, 16, 16, 2048, 256, None, None),    # Gemma-7B
+    (1, 16, 8, 8192, 256, 4096, 50.0),     # Gemma-2, a windowed layer
+    (1, 32, 2, 2048, 128, None, None),     # GLM-4, group 16
+    (1, 40, 8, 2048, 128, None, None),     # Llama-4-Scout, group 5
+])
+def test_bf16_prefill_at_the_full_configs_shapes(card, B, Hq, Hkv, T, D,
+                                                 window, softcap):
+    """Causal bf16 prefill at the full shapes of the configs chip_smoke.py
+    serves in phases 4g-4k (head_dim 256 on its one bf16 tile, 8192
+    positions with Gemma-2's window and softcap, groups 16 and 5), within
+    3e-2 and the row-relative gate."""
+    gen = torch.Generator(card).manual_seed(8)
+    q = _rand(gen, (B, Hq, T, D), torch.bfloat16, card)
+    k = _rand(gen, (B, Hkv, T, D), torch.bfloat16, card)
+    v = _rand(gen, (B, Hkv, T, D), torch.bfloat16, card)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = ops.flash_attention(q, k, v, **kw)
+    _assert_close(got, R.attention_ref(q, k, v, **kw), TOLS[torch.bfloat16])
+    _assert_rel(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,D", [
+    (32, 2, 128),     # GLM-4: group 16, two blocks of 8 rows a group
+    (40, 8, 128),     # Llama-4-Scout: group 5, one block, 3 rows padded
+    (16, 16, 256),    # Gemma-7B: head_dim 256 at group 1
+])
+def test_decode_at_the_full_configs_groups(card, dtype, Hq, Hkv, D):
+    """Split-KV decode at batch 4 over a 4096-position cache at the groups
+    and head_dim the configs of phases 4g-4k reach, pos at 0, 100, the
+    chunk edges, S/2 and S - 1, against the plain version."""
+    gen = torch.Generator(card).manual_seed(9)
+    S = 4096
+    q = _rand(gen, (4, Hq, 1, D), dtype, card)
+    k = _rand(gen, (4, Hkv, S, D), dtype, card)
+    v = _rand(gen, (4, Hkv, S, D), dtype, card)
+    L, _ = decode_splits(4, Hkv, Hq // Hkv, S, D, q.element_size())
+    for pos in sorted({0, 100, L - 1, L, S // 2, S - 1}):
+        pos_t = torch.tensor(pos, dtype=torch.int32, device=card)
+        got = ops.decode_attention(q, k, v, pos=pos_t)
+        _assert_close(got, R.decode_attention_ref(q, k, v, pos=pos),
+                      TOLS[dtype])
+        _assert_rel(got, q, k, v, causal=True, offset=pos)
+
+
 def test_prefill_wrapper_refuses_unbuilt_tiles(card):
     """A tile that the dtype's kernel does not build is refused before any
     launch: the fp32 tiles in bf16, the bf16 tiles in fp32, and the bf16

@@ -338,3 +338,17 @@ def test_fault_checks_default_to_the_card(tool, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cuda"):
         mod.main([])
+
+
+def test_dryrun_ops_breaks_a_cell_down_by_product():
+    """``tools/dryrun_ops.py``: the products of one traced cell, by op and
+    local shapes, sum to the cell's counted FLOPs a device."""
+    from repro_torch.tools.dryrun_ops import ops_by_shape
+    rec, rows = ops_by_shape("whisper_base", "train_4k", mesh_shape=MESH_2X2,
+                             reduced=True)
+    assert rec["status"] == "ok", rec.get("trace")
+    r = rec["roofline"]
+    assert rows and rows == sorted(rows, key=lambda row: -row[0])
+    assert sum(f for f, _, _ in rows) == pytest.approx(
+        r["flops_global"] / r["chips"], rel=1e-9)
+    assert {op for _, op, _ in rows} >= {"aten.mm", "aten.bmm"}

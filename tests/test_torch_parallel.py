@@ -319,8 +319,9 @@ def test_sequence_split_moves_to_channels_on_local_ops(C, want):
     """Ops across T run on local shards with T whole: the mesh dim that
     splits T, or that splits the conv weight's channels, splits x's
     channels instead where they divide (``_seq_to_channels``), as the
-    token shift's does; where they do not, the shift gathers T and keeps
-    B split."""
+    token shift's does; where they do not, the shift gathers T and that
+    mesh dim splits B further (``local_call`` leaves no mesh dim
+    repeating the work where a free dim divides)."""
     from repro_torch.models import blocks as TB
     with fake_group(4):
         mesh = shape_mesh((2, 2), ("data", "model"))
@@ -330,8 +331,9 @@ def test_sequence_split_moves_to_channels_on_local_ops(C, want):
         assert tuple(TB._seq_to_channels(x).placements) == want
         y = TB._shift(x)
         assert tuple(y.placements) == (want if C % 2 == 0
-                                       else (Shard(0), Replicate()))
-        assert y.to_local().shape == (2, 6, C // 2 if C % 2 == 0 else C)
+                                       else (Shard(0), Shard(0)))
+        assert y.to_local().shape == ((2, 6, C // 2) if C % 2 == 0
+                                      else (1, 6, C))
         if C % 2 == 0:
             xr = S.distribute(torch.zeros(4, 6, C), mesh,
                               ("batch", "none", "none"))

@@ -13,10 +13,12 @@ dispatch, to ``repro`` under its own 4-device mesh).
   chunked selective scan on each device's shards (the token shift and the
   causal conv with T whole, their inputs' T split moved to channels): the
   forward, the loss and every gradient.
-- Multi-pod: the RWKV-6, Jamba and Mistral-NeMo smokes' loss and every
-  gradient on a 2×2×2 ("pod", "data", "model") mesh of 8 ranks, where a
-  product's rows B·T would split over three mesh dims and T's split moves
-  to the contracted dim first, held to the port's unsharded step.
+- Multi-pod: the RWKV-6, Jamba, Mistral-NeMo, Whisper (one head) and
+  GLM-4 (one kv head) smokes' loss and every gradient on a 2×2×2 ("pod",
+  "data", "model") mesh of 8 ranks, where a product's rows B·T would split
+  over three mesh dims and T's split moves to the contracted dim first,
+  and where the attention's query rows split over model, held to the
+  port's unsharded step.
 - MoE: ``moe_fwd`` of a DeepSeekMoE smoke at B·T = 8192 (the shard_map
   path) at capacity factor 1.0, where the local capacity drops tokens, and
   its aux loss; the reference runs in a subprocess with 4 host devices.
@@ -172,9 +174,15 @@ def run():
     return ref, dict(np.load(moe_out)), dict(np.load(out_path))
 
 
+# Whisper with one head and GLM-4 with one kv head: at batch 4 over
+# (pod, data) neither leaves model a batch row or a head to split, so the
+# attention splits its query rows over model (causal ones at each shard's
+# offset); GLM-4's kv head is repeated for the q heads model splits
 MULTI_POD = {"rwkv6_7b": SCANS["rwkv6_7b"],
              "jamba_1_5_large_398b": SCANS["jamba_1_5_large_398b"],
-             "mistral_nemo_12b": dict(dtype="float32")}
+             "mistral_nemo_12b": dict(dtype="float32"),
+             "whisper_base": dict(dtype="float32", n_heads=1, n_kv_heads=1),
+             "glm4_9b": dict(dtype="float32")}
 
 
 @pytest.fixture(scope="module")
