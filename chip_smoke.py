@@ -189,6 +189,27 @@ Phases, each of which stops the run with a non-zero exit on failure:
       each cell's status ``ok`` and its counted FLOPs per device within
       its stated factor of the model's; GB/dev, Tc, Tm and Tx logged
       (predictions from operation counts against the H100's constants).
+11. the DSE's evaluation on the card (``repro_torch.dse``: Evaluator,
+   searches, supervised pool, serving replay, report; no kernel of its
+   own), every search held to the NumPy engine's in the same run (names,
+   integers and visit orders equal, energies within ENERGY_RTOL), times
+   logged beside the card's name and power limit:
+   a. ``batch_sweep`` of the ``large`` space over phase 9's warm cache
+      (624 designs, the DSE's default zoo at seq 512 and 4096, objective
+      cycles): 0 dispatches, 0 entries added, 0 misses; its evals and
+      frontier against the NumPy engine's cold ``exhaustive_search`` of the
+      same designs (a pool of spawned workers); the frontier printed;
+   b. ``exhaustive_search`` of ``small`` with ``Evaluator(engine="torch")``
+      and a cold cache, the misses scored on the card counted;
+   c. ``evolve_search`` of ``huge``, budget 64, seed 0: the visit order,
+      prefilter and frontier of both engines identical;
+   d. a pool of 2 workers over ``small`` once CUDA is up: it spawns, and
+      its evals and frontier are the in-process run's;
+   e. ``Evaluator(serving=ServingSpec())`` (the reference's default trace
+      and SLO) over ``tiny``: every design's serving summary;
+   f. ``benchmarks/dse.py --models all --quick``'s settings (``tiny``, the
+      ten configs at seq 256, prefill, Gemmini baseline): the cross-model
+      winner, the scorecard and the winner's table.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -1513,6 +1534,9 @@ def main() -> int:
 
     # ---- 10. sharded entry points on a one-card mesh -------------------------
     _sharded(dev, reset, launches)
+
+    # ---- 11. the DSE's evaluation on the card --------------------------------
+    _dse_eval(dev, smi)
 
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
@@ -3115,6 +3139,204 @@ def _dryrun_records(procs, out_dir) -> None:
             "constants)")
     if excessive:
         fail("10c dry run " + "; ".join(excessive))
+
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the DSE's evaluation on the card
+# ---------------------------------------------------------------------------
+
+DSE_POOL = 8                # 11a's NumPy sweep: spawned workers, one a core
+DSE_BUDGET, DSE_SEED = 64, 0  # 11c: benchmarks/dse.py's evolve defaults
+
+
+def _dse_same(what, got, want, path="") -> None:
+    """Scorecards of the two engines: names and every number equal, the
+    energies (and what derives from them) within ENERGY_RTOL relative."""
+    from repro_torch.core.perf_model_torch import ENERGY_RTOL
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            fail(f"{what}{path}: keys {list(got)} vs {list(want)}")
+        for k in want:
+            _dse_same(what, got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            fail(f"{what}{path}: {len(got)} items vs {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _dse_same(what, g, w, f"{path}[{i}]")
+    elif isinstance(want, float) and any(
+            k in path for k in ("energy", "gops_per_w")):
+        if not abs(got - want) <= ENERGY_RTOL * abs(want):
+            fail(f"{what}{path}: {got!r} vs {want!r} (rtol {ENERGY_RTOL:g})")
+    elif type(got) is not type(want) or got != want:
+        fail(f"{what}{path}: {got!r} vs {want!r}")
+
+
+def _dse_same_result(what, got, want) -> None:
+    """Two SearchResults: the same designs in the same order, the same
+    scorecards, the same frontier."""
+    for part in ("evals", "frontier"):
+        g, w = getattr(got, part), getattr(want, part)
+        if [e.point.name for e in g] != [e.point.name for e in w]:
+            fail(f"{what}: the {part} differ in their designs or order")
+        _dse_same(f"{what} {part}", [e.as_dict() for e in g],
+                  [e.as_dict() for e in w])
+
+
+def _dse_eval(dev, smi: str) -> None:
+    """Phase 11: the Evaluator, the searches, the pool, the serving replay
+    and the report of the port, each miss scored on the card, held to the
+    NumPy engine in the same run."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.dse import batch_sweep as B
+    from repro_torch.dse.cache import MappingCache
+    from repro_torch.dse.evaluate import Evaluator, load_zoo
+    from repro_torch.dse.report import (cross_model_winner, format_frontier,
+                                        format_models, format_scorecard,
+                                        format_serving)
+    from repro_torch.dse.search import evolve_search, exhaustive_search
+    from repro_torch.dse.space import SPACES
+    from repro_torch.dse.supervisor import Supervisor
+    from repro_torch.serve.sim import ServingSpec
+
+    t_phase = time.perf_counter()
+    if not torch.cuda.is_initialized():
+        fail("11: CUDA is not up before the DSE's searches")
+    log(f"phase 11 the DSE's evaluation on the card [{smi}]")
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    # 11a. large, design-batched over phase 9's warm cache, against the
+    # NumPy engine's cold exhaustive search of the same designs
+    space = SPACES[DSE_SPACE]
+    zoo = B.sweep_zoo(B.DEFAULT_ZOO, DSE_SEQS)
+    path = ROOT / ".chipscratch" / "dse_large_cache.json"
+    cache = MappingCache(path)
+    n_warm = len(cache)
+    ev = Evaluator(zoo=zoo, cache=cache, objective="cycles", engine="torch",
+                   device=dev)
+    st = B.new_stats()
+    res, card_s = timed(lambda: B.batch_sweep(space, ev, d_tile=DSE_TILE,
+                                              stats=st))
+    if n_warm == 0 or st["designs"] != len(list(space.enumerate())) or \
+            st["dispatches"] != 0 or \
+            st["entries_added"] != 0 or res.cache_stats["misses"] != 0:
+        fail(f"11a: the sweep over phase 9's cache ({n_warm} entries) "
+             f"solved something: {st}, {res.cache_stats}")
+    workers = min(DSE_POOL, os.cpu_count() or 1)
+    ref, numpy_s = timed(lambda: exhaustive_search(
+        space, Evaluator(zoo=zoo, cache=MappingCache(), engine="numpy"),
+        workers=workers))
+    if ref.supervisor["respawns"] or ref.supervisor["degraded_sequential"]:
+        fail(f"11a: the NumPy engine's pool: {ref.supervisor}")
+    _dse_same_result("11a large", res, ref)
+    log(f"  11a {space.name}: batch_sweep on the card over phase 9's "
+        f"{n_warm} entries: {st['designs']} designs in {st['tiles']} "
+        f"tiles, prefill {st['prefill_s']:.3f} s (0 dispatches, 0 "
+        f"entries), evaluation {st['eval_s']:.3f} s, "
+        f"{res.cache_stats['hits']} hits / 0 misses, wall {card_s:.3f} s; "
+        f"the NumPy engine's cold exhaustive_search ({workers} spawned "
+        f"workers, {ref.cache_stats['misses']} misses) {numpy_s:.3f} s; "
+        f"evals and frontier identical (energy within ENERGY_RTOL)")
+    for line in format_frontier(res).splitlines():
+        log(f"     {line}")
+
+    # 11b. small, per design, cold: every miss scored on the card
+    zoo512 = load_zoo(B.DEFAULT_ZOO, seq=512)
+    small = SPACES["small"]
+    got, t_card = timed(lambda: exhaustive_search(
+        small, Evaluator(zoo=zoo512, engine="torch", device=dev)))
+    want, t_np = timed(lambda: exhaustive_search(
+        small, Evaluator(zoo=zoo512, engine="numpy")))
+    _dse_same_result("11b small", got, want)
+    if got.cache_stats["misses"] == 0:
+        fail("11b: the cold search scored nothing on the card")
+    log(f"  11b {small.name} ({got.n_designs} designs, seq 512), cold, per "
+        f"design: torch engine on the card {t_card:.3f} s "
+        f"({got.cache_stats['misses']} misses scored on the card, "
+        f"{got.cache_stats['hits']} hits), NumPy engine {t_np:.3f} s; evals "
+        f"and frontier identical")
+
+    # 11c. huge, guided: the same visit order and frontier on either engine
+    huge = SPACES["huge"]
+    g3, t_card3 = timed(lambda: evolve_search(
+        huge, Evaluator(zoo=zoo512, engine="torch", device=dev),
+        budget=DSE_BUDGET, seed=DSE_SEED))
+    w3, t_np3 = timed(lambda: evolve_search(
+        huge, Evaluator(zoo=zoo512, engine="numpy"), budget=DSE_BUDGET,
+        seed=DSE_SEED))
+    if g3.extra != w3.extra:
+        fail(f"11c: the guided searches differ: {g3.extra} vs {w3.extra}")
+    _dse_same_result("11c huge", g3, w3)
+    log(f"  11c {huge.name} evolve_search budget {DSE_BUDGET} seed "
+        f"{DSE_SEED}: {g3.extra['spent']} designs visited in the same order "
+        f"({g3.extra['prefilter_evals']} prefilter evaluations on "
+        f"{g3.extra['prefilter_zoo']}), {len(g3.frontier)} on the frontier; "
+        f"torch engine on the card {t_card3:.3f} s "
+        f"({g3.cache_stats['misses']} misses), NumPy engine {t_np3:.3f} s")
+
+    # 11d. the pool after CUDA is up: it must spawn; its frontier is the
+    # in-process one (11b's NumPy run)
+    ev4 = Evaluator(zoo=zoo512, engine="torch", device=dev)
+    with Supervisor(ev4, workers=2) as sup:
+        method = sup._ctx.get_start_method()
+        pooled, t_pool = timed(lambda: exhaustive_search(small, ev4,
+                                                         supervisor=sup))
+    if method != "spawn":
+        fail(f"11d: the pool starts its workers by {method!r} with CUDA up")
+    if pooled.supervisor["evaluated"] != want.n_designs or \
+            pooled.supervisor["respawns"]:
+        fail(f"11d: the pool's run: {pooled.supervisor}")
+    _dse_same_result("11d pool", pooled, want)
+    log(f"  11d pool of 2 workers ({method}, CUDA up in the parent) over "
+        f"{small.name}: {t_pool:.3f} s, evals and frontier == workers=1's")
+
+    # 11e. serving: the reference's default trace and SLO over tiny
+    tiny = SPACES["tiny"]
+    g5, t_card5 = timed(lambda: exhaustive_search(tiny, Evaluator(
+        zoo=zoo512, engine="torch", device=dev, serving=ServingSpec())))
+    w5, t_np5 = timed(lambda: exhaustive_search(tiny, Evaluator(
+        zoo=zoo512, engine="numpy", serving=ServingSpec())))
+    _dse_same_result("11e serving", g5, w5)
+    if any(e.serving is None for e in g5.evals) or \
+            format_serving(g5) != format_serving(w5):
+        fail("11e: the serving scorecards differ")
+    best = g5.best("goodput")
+    log(f"  11e serving over {tiny.name} (trace "
+        f"'{best.serving['trace']['spec']}'): every design's summary == the "
+        f"NumPy engine's; goodput winner {best.point.name} at "
+        f"{best.serving['goodput_tps']:.3f} tokens/s (simulated); torch "
+        f"engine on the card {t_card5:.3f} s ({g5.cache_stats['misses']} "
+        f"misses), NumPy engine {t_np5:.3f} s")
+
+    # 11f. cross-model: benchmarks/dse.py --models all --quick
+    mzoo = load_zoo(ARCH_IDS, seq=256)
+    g6, t_card6 = timed(lambda: exhaustive_search(tiny, Evaluator(
+        zoo=mzoo, engine="torch", device=dev, baseline="gemmini")))
+    w6, t_np6 = timed(lambda: exhaustive_search(tiny, Evaluator(
+        zoo=mzoo, engine="numpy", baseline="gemmini")))
+    _dse_same_result("11f models", g6, w6)
+    (gw, gs, gm), (ww, ws, wm) = (cross_model_winner(g6.frontier),
+                                  cross_model_winner(w6.frontier))
+    if (gw.point.name, gm) != (ww.point.name, wm) or \
+            format_scorecard(g6.evals) != format_scorecard(w6.evals) or \
+            format_models(g6) != format_models(w6):
+        fail(f"11f: the cross-model winner or scorecard differs: "
+             f"{gw.point.name} {gs} vs {ww.point.name} {ws}")
+    log(f"  11f cross-model ({len(mzoo)} configs, {tiny.name}, seq 256, "
+        f"prefill, Gemmini baseline): winner and scorecard == the NumPy "
+        f"engine's; torch engine on the card {t_card6:.3f} s "
+        f"({g6.cache_stats['misses']} misses), NumPy engine {t_np6:.3f} s")
+    for line in format_models(g6).splitlines():
+        log(f"     {line}")
+    log(f"phase 11 done in {time.perf_counter() - t_phase:.1f}s")
+
 
 if __name__ == "__main__":
     sys.exit(main())

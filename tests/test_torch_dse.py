@@ -46,8 +46,10 @@ from repro_torch.core.perf_model_torch import (ENERGY_RTOL, ENGINES,
                                                perf_kernel_torch_design)
 from repro_torch.dse import batch_sweep as PB
 from repro_torch.dse import cache as PCache
+from repro_torch.dse import evaluate as PEv
 from repro_torch.dse import space as PS
 from repro_torch.frontend import lower_zoo
+from repro_torch.serve import sim as PSim
 
 CPU = "cpu"
 _EXACT = tuple(k for k in RESULT_KEYS if k != "energy_pj")
@@ -483,11 +485,30 @@ def _gemm_batch():
 
 @pytest.mark.parametrize("entry", ("perf_kernel_torch",
                                    "perf_kernel_torch_design",
-                                   "best_mappings", "prefill_sweep"))
+                                   "best_mappings", "prefill_sweep",
+                                   "best_mapping_perfs", "Evaluator",
+                                   "batch_sweep", "DecodeCostModel",
+                                   "simulate"))
 def test_entry_points_default_to_the_card(no_card, entry, tmp_path):
     hp, args = _gemm_batch()
+    zoo = PB.sweep_zoo(("gemma_7b",), (64,), True)
+    point = next(PS.SPACES["tiny"].enumerate())
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
-        if entry == "perf_kernel_torch":
+        if entry == "best_mapping_perfs":
+            PCache.MappingCache().best_mapping_perfs(
+                _PWL["gemm"], [({"i": 8, "j": 8, "k": 8}, 0.0)],
+                _menu(PM, "gemm"), hp, engine="torch")
+        elif entry == "Evaluator":
+            PEv.Evaluator(zoo=zoo, engine="torch")
+        elif entry == "batch_sweep":
+            # the sweep prefills on the evaluator's device, whatever its
+            # engine: the card unless the CPU is named
+            PB.batch_sweep(PS.SPACES["tiny"], PEv.Evaluator(zoo=zoo))
+        elif entry == "DecodeCostModel":
+            PSim.DecodeCostModel(point, engine="torch")
+        elif entry == "simulate":
+            PSim.simulate(point, engine="torch")
+        elif entry == "perf_kernel_torch":
             perf_kernel_torch(_PWL["gemm"], hp, *args)
         elif entry == "perf_kernel_torch_design":
             perf_kernel_torch_design(_PWL["gemm"], [hp], *args[:6],
