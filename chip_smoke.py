@@ -210,6 +210,19 @@ Phases, each of which stops the run with a non-zero exit on failure:
    f. ``benchmarks/dse.py --models all --quick``'s settings (``tiny``, the
       ten configs at seq 256, prefill, Gemmini baseline): the cross-model
       winner, the scorecard and the winner's table.
+12. the LEGO generator (``repro_torch.core``: ADG, DAG, LP/ILP back end,
+   Verilog on the host; the simulators, plain PyTorch in float64/int64 and
+   no kernel of their own, on the card), times logged beside the card's
+   name and power limit: the paper's four fused 256-FU designs
+   (GEN_DESIGNS, ``benchmarks/designs.py``'s loops) built and emitted;
+   every dataflow through ``oracle``, ``simulate`` and ``simulate_rtl`` on
+   the card, each output equal to the card's oracle and every output,
+   counter, FIFO and join check and ``hw`` record equal to the same call
+   on the CPU (Attention through the staged entry points, P = S and P =
+   softmax(S), the softmax stage held to the CPU at GEN_SOFTMAX_RTOL);
+   Conv2d-MNICOC's conv-icoc at ``oh = ow = 56`` (T = 112,896), funcsim
+   not run on the CPU at that size; the FIFO words at a FIFO feeding a
+   FIFO bit-exact, and a corrupted delay matching caught.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -1537,6 +1550,9 @@ def main() -> int:
 
     # ---- 11. the DSE's evaluation on the card --------------------------------
     _dse_eval(dev, smi)
+
+    # ---- 12. the LEGO generator on the card ---------------------------------
+    _generator(dev, smi, t_start)
 
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f}s")
@@ -3336,6 +3352,311 @@ def _dse_eval(dev, smi: str) -> None:
     for line in format_models(g6).splitlines():
         log(f"     {line}")
     log(f"phase 11 done in {time.perf_counter() - t_phase:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the LEGO generator on the card
+# ---------------------------------------------------------------------------
+
+# the reference's recipes for the paper's fused 256-FU designs
+# (benchmarks/designs.py), written out: (workload, dataflow, spatial loops,
+# temporal loops, control-flow vector c) per dataflow
+GEN_DESIGNS = {
+    "GEMM-MJ": [
+        ("gemm", "gemm-jk", [("k", 16), ("j", 16)],
+         [("i", 4), ("j", 4), ("k", 4), ("i", 8)], (1, 1)),
+        ("gemm", "gemm-ij", [("i", 16), ("j", 16)],
+         [("i", 4), ("j", 4), ("k", 32)], (1, 1))],
+    "Conv2d-MNICOC": [
+        ("conv2d", "conv-ohow", [("ow", 16), ("oh", 16)],
+         [("n", 1), ("ow", 2), ("oh", 2), ("oc", 8), ("ic", 8), ("kh", 3),
+          ("kw", 3)], (0, 0)),
+        ("conv2d", "conv-icoc", [("ic", 16), ("oc", 16)],
+         [("n", 1), ("oc", 2), ("ic", 2), ("oh", 8), ("ow", 8), ("kh", 3),
+          ("kw", 3)], (1, 1))],
+    "MTTKRP-MJ": [
+        ("mttkrp", "mttkrp-ij", [("i", 16), ("j", 16)],
+         [("i", 2), ("k", 8), ("l", 8)], (0, 0)),
+        ("mttkrp", "mttkrp-kj", [("k", 16), ("j", 16)],
+         [("i", 16), ("k", 2), ("l", 8)], (1, 1))],
+    "Attention": [
+        ("attention_qk", "attn-qk", [("m", 16), ("n", 16)],
+         [("b", 2), ("m", 2), ("n", 2), ("d", 16)], (0, 0)),
+        ("attention_pv", "attn-pv", [("m", 16), ("n", 16)],
+         [("b", 2), ("m", 2), ("n", 2), ("d", 16)], (0, 0))],
+}
+# the long run: Conv2d-MNICOC with conv-icoc's oh and ow at 56, the spatial
+# size of ResNet-50's conv2_x layers (T = 2*2*56*56*3*3 = 112,896 cycles,
+# 28.9 M MACs)
+GEN_LONG_OHOW = 56
+# the PV stage behind a softmax: the card's exp against the CPU's
+GEN_SOFTMAX_RTOL = 1e-12
+
+
+def _gen_recipe(name: str, ohow: int | None = None):
+    from repro_torch.core import workload as W
+    from repro_torch.core.dataflow import build_dataflow
+    specs = []
+    for wname, dfn, spatial, temporal, c in GEN_DESIGNS[name]:
+        if ohow is not None and dfn == "conv-icoc":
+            temporal = [(d, ohow if d in ("oh", "ow") else n)
+                        for d, n in temporal]
+        wl = getattr(W, wname)()
+        specs.append((wl, build_dataflow(wl, spatial=spatial,
+                                         temporal=temporal, c=c, name=dfn)))
+    return specs
+
+
+def _gen_build(name: str, specs):
+    """Host: ADG, DAG, the LP/ILP back end and the Verilog, each timed."""
+    from repro_torch.core.adg import generate_adg
+    from repro_torch.core.cost import dag_area_um2, dag_power_mw
+    from repro_torch.core.dag import codegen
+    from repro_torch.core.emit import emit_netlist
+    from repro_torch.core.passes import run_backend
+    t0 = time.perf_counter()
+    adg = generate_adg(specs, name=name)
+    t1 = time.perf_counter()
+    dag = codegen(adg)
+    rep = run_backend(dag)
+    t2 = time.perf_counter()
+    text = emit_netlist(dag)
+    t3 = time.perf_counter()
+    if "pipe(" in text or not text.startswith("// generated by"):
+        fail(f"12 {name}: emitted Verilog is malformed")
+    log(f"  12 {name}: ADG {t1 - t0:.2f} s ({adg.summary()['links']} links, "
+        f"{adg.summary()['data_nodes']} data nodes), DAG + back end "
+        f"{t2 - t1:.2f} s ({len(dag.nodes)} nodes, {len(dag.edges)} edges, "
+        f"register bits {rep['register_bits']}, depth "
+        f"{rep['pipeline_depth']}), Verilog {t3 - t2:.2f} s "
+        f"({len(text.splitlines())} lines, {len(text)} bytes); "
+        f"{dag_area_um2(dag).total_um2 / 1e6:.3f} mm2, "
+        f"{dag_power_mw(dag).total_mw:.1f} mW")
+    return adg, dag
+
+
+def _gen_same(tag, card, cpu, fields) -> None:
+    """The card's result equal to the CPU's: output bit for bit and each
+    named field (counters, checks, introspection) equal."""
+    import torch
+    if not torch.equal(card.output.cpu(), cpu.output):
+        fail(f"12 {tag}: the card's output differs from the CPU's")
+    for f in fields:
+        if getattr(card, f) != getattr(cpu, f):
+            fail(f"12 {tag}: {f} differs between the card and the CPU: "
+                 f"{getattr(card, f)} vs {getattr(cpu, f)}")
+
+
+def _gen_timed(dev, fn):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+SIM_FIELDS = ("fills", "mem_reads", "link_transfers", "cycles")
+RTL_FIELDS = SIM_FIELDS + ("pipeline_depth", "checks", "hw")
+
+
+def _gen_dataflow(tag, adg, dag, df_name, dev, seed, *, cpu_sim=True):
+    """One dataflow through the oracle, funcsim and the netlist simulator
+    on the card and on the CPU: every output equal to the card's oracle,
+    and every output, counter, check and hw record equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.funcsim import oracle, simulate
+    from repro_torch.core.rtlsim import simulate_rtl
+    spec = adg.spec(df_name)
+    wl, df = spec.workload, spec.dataflow
+    r = np.random.default_rng(seed)
+    host = {t.name: torch.from_numpy(
+        r.integers(-4, 5, size=wl.tensor_shape(t, df.sizes()))
+        .astype(np.float64)) for t in wl.inputs}
+    card = {k: v.to(dev) for k, v in host.items()}
+    cpu = torch.device("cpu")
+    ref, t_or = _gen_timed(dev, lambda: oracle(wl, df.sizes(), card))
+    sim, t_sim = _gen_timed(dev, lambda: simulate(adg, df_name, card))
+    rtl, t_rtl = _gen_timed(dev, lambda: simulate_rtl(dag, adg, df_name,
+                                                       card))
+    for what, res in (("funcsim", sim), ("netlist", rtl)):
+        if not torch.equal(res.output, ref):
+            fail(f"12 {tag} {df_name}: {what} on the card != the card's "
+                 f"oracle")
+    c_ref, c_or = _gen_timed(cpu, lambda: oracle(wl, df.sizes(), host))
+    if not torch.equal(ref.cpu(), c_ref):
+        fail(f"12 {tag} {df_name}: the card's oracle != the CPU's")
+    c_rtl, c_t_rtl = _gen_timed(cpu, lambda: simulate_rtl(dag, adg, df_name,
+                                                           host))
+    _gen_same(f"{tag} {df_name} netlist", rtl, c_rtl, RTL_FIELDS)
+    if cpu_sim:
+        c_sim, c_t_sim = _gen_timed(cpu, lambda: simulate(adg, df_name, host))
+        _gen_same(f"{tag} {df_name} funcsim", sim, c_sim, SIM_FIELDS)
+        cpu_sim_s = f"{c_t_sim:.3f}"
+    else:
+        cpu_sim_s = "skipped at this size"
+    if (sim.fills, sim.mem_reads, sim.link_transfers) != \
+            (rtl.fills, rtl.mem_reads, rtl.link_transfers):
+        fail(f"12 {tag} {df_name}: funcsim's counters != the netlist's")
+    log(f"  12 {tag} {df_name}: T = {df.total_cycles}, {df.n_fus} FUs, "
+        f"{rtl.cycles} wall cycles, {len(rtl.checks['fifos'])} FIFOs, "
+        f"{rtl.checks['joins_checked']} joins; bit-exact; card s / CPU s: "
+        f"oracle {t_or:.3f} / {c_or:.3f}, funcsim {t_sim:.3f} / "
+        f"{cpu_sim_s}, netlist {t_rtl:.3f} / {c_t_rtl:.3f}")
+
+
+def _gen_attention(adg, dag, dev) -> None:
+    """The staged Attention design, P = S and P = softmax(S) at the
+    handover, on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.funcsim import simulate_stages, staged_oracle
+    from repro_torch.core.rtlsim import simulate_rtl_stages
+    stages, resident = ["attn-qk", "attn-pv"], {"S": "P"}
+    r = np.random.default_rng(12)
+    host = {}
+    for dfn, names in (("attn-qk", ("Q", "K")), ("attn-pv", ("V",))):
+        spec = adg.spec(dfn)
+        for n in names:
+            shape = spec.workload.tensor_shape(spec.workload.tensor(n),
+                                               spec.dataflow.sizes())
+            host[n] = torch.from_numpy(
+                r.integers(-4, 5, size=shape).astype(np.float64))
+    card = {k: v.to(dev) for k, v in host.items()}
+
+    def softmax(s):
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        return e / e.sum(dim=-1, keepdim=True)
+
+    for label, ppu in (("P = S", None), ("P = softmax(S)", softmax)):
+        kw = dict(resident=resident, ppu=ppu)
+        refs, t_or = _gen_timed(dev, lambda: staged_oracle(
+            adg, stages, card, **kw))
+        sims, t_sim = _gen_timed(dev, lambda: simulate_stages(
+            adg, stages, card, **kw))
+        rtls, t_rtl = _gen_timed(dev, lambda: simulate_rtl_stages(
+            dag, adg, stages, card, **kw))
+        c_rtls = simulate_rtl_stages(dag, adg, stages, host, **kw)
+        c_sims = simulate_stages(adg, stages, host, **kw)
+        for k, (o, s, x, cs, cx) in enumerate(zip(refs, sims, rtls, c_sims,
+                                                  c_rtls)):
+            if not (torch.equal(s.output, o) and torch.equal(x.output, o)):
+                fail(f"12 Attention {label} stage {k}: funcsim or netlist "
+                     f"on the card != the card's staged oracle")
+            if ppu is not None and k == 1:
+                got, want = x.output.cpu(), cx.output
+                rel = float(((got - want).abs()
+                             / want.abs().clamp_min(1e-300)).max())
+                if rel > GEN_SOFTMAX_RTOL:
+                    fail(f"12 Attention softmax stage: card vs CPU {rel:.3e}"
+                         f" > {GEN_SOFTMAX_RTOL}")
+                for f in RTL_FIELDS:
+                    if getattr(x, f) != getattr(cx, f):
+                        fail(f"12 Attention softmax stage: {f} differs")
+            else:
+                _gen_same(f"Attention {label} stage {k} netlist", x, cx,
+                          RTL_FIELDS)
+                _gen_same(f"Attention {label} stage {k} funcsim", s, cs,
+                          SIM_FIELDS)
+        log(f"  12 Attention {label}: two stages bit-exact against the "
+            f"card's staged oracle; card s: oracle {t_or:.3f}, funcsim "
+            f"{t_sim:.3f}, netlist {t_rtl:.3f}")
+
+
+def _gen_repair(dev) -> None:
+    """The FIFO word repaired in the port (a FIFO feeding a FIFO) and a
+    corrupted delay matching, on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import workload as W
+    from repro_torch.core.adg import generate_adg
+    from repro_torch.core.dag import codegen
+    from repro_torch.core.dataflow import build_dataflow
+    from repro_torch.core.funcsim import oracle
+    from repro_torch.core.passes import delay_matching, run_backend
+    from repro_torch.core.rtlsim import RTLTimingError, simulate_rtl
+
+    def inputs(wl, df):
+        r = np.random.default_rng(0)
+        return {t.name: torch.from_numpy(
+            r.integers(-4, 5, size=wl.tensor_shape(t, df.sizes()))
+            .astype(np.float64)).to(dev) for t in wl.inputs}
+
+    wl = W.conv2d()
+    df = build_dataflow(wl, spatial=[("ow", 2), ("oh", 2)],
+                        temporal=[("n", 1), ("ow", 1), ("oh", 1), ("oc", 2),
+                                  ("ic", 1), ("kh", 3), ("kw", 3)],
+                        c=(0, 0), name="conv-h")
+    adg = generate_adg([(wl, df)], name="t")
+    dag = codegen(adg)
+    run_backend(dag)
+    x = inputs(wl, df)
+    res = simulate_rtl(dag, adg, df.name, x)
+    fifos = res.checks["fifos"]
+    if not torch.equal(res.output, oracle(wl, df.sizes(), x)) or \
+            any(f["programmed"] != f["delay"] for f in fifos.values()):
+        fail("12 repair: the conv-h example is not bit-exact on the card")
+    wl = W.gemm()
+    df = build_dataflow(wl, spatial=[("k", 4), ("j", 4)],
+                        temporal=[("i", 2), ("j", 2), ("k", 2), ("i", 4)],
+                        c=(1, 1), name="gemm-jk")
+    adg = generate_adg([(wl, df)], name="t")
+    dag = codegen(adg)
+    delay_matching(dag)
+    next(e for e in dag.edges if e.el > 0).el += 1
+    try:
+        simulate_rtl(dag, adg, df.name, inputs(wl, df))
+    except RTLTimingError as e:
+        log(f"  12 repair: conv-h (p=2, kh=3, ic=1) bit-exact on the card, "
+            f"{len(fifos)} FIFO words == their required delays; a corrupted "
+            f"delay matching raises: {e}")
+    else:
+        fail("12: a corrupted delay matching was not caught")
+
+
+def _generator(dev, smi: str, t_start: float) -> None:
+    """Phase 12: the four fused 256-FU designs built on the host, every
+    dataflow simulated on the card and held to the card's oracle and to
+    the CPU, the long conv run, the FIFO-word repair."""
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"phase 12 the LEGO generator [{smi}]")
+    built = {name: _gen_build(name, _gen_recipe(name))
+             for name in GEN_DESIGNS}
+    for seed, (name, (adg, dag)) in enumerate(built.items()):
+        if name == "Attention":
+            _gen_attention(adg, dag, dev)
+            continue
+        for df_name in adg.dataflow_names:
+            _gen_dataflow(name, adg, dag, df_name, dev, seed)
+    # the long run: conv-icoc at oh = ow = 56
+    adg, dag = _gen_build(f"Conv2d-MNICOC oh=ow={GEN_LONG_OHOW}",
+                          _gen_recipe("Conv2d-MNICOC", GEN_LONG_OHOW))
+    del built
+    gc.collect()
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _gen_dataflow(f"Conv2d-MNICOC oh=ow={GEN_LONG_OHOW}", adg, dag,
+                  "conv-icoc", dev, 7, cpu_sim=False)
+    peak = (f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB"
+            if on_card else "not measured")
+    log(f"  12 long run: peak device memory {peak}; funcsim skipped on the "
+        f"CPU at this size")
+    _gen_repair(dev)
+    log(f"phase 12 done in {time.perf_counter() - t_phase:.1f}s "
+        f"(script at {time.perf_counter() - t_start:.1f}s) [{smi}]")
 
 
 if __name__ == "__main__":

@@ -194,9 +194,10 @@ def write_models_json(path: str, result: SearchResult,
     its geomean selection score (:func:`cross_model_winner`) — picked among
     the non-dominated designs so the "one architecture" answer respects the
     cycles/energy/area trade-off, not raw speed alone.  ``artifacts`` maps a
-    dataflow set to an emitted Verilog path (the reference emits them; the
-    port does not), attached to each design entry as ``rtl`` exactly as in
-    :func:`write_bench_json`."""
+    dataflow set to an emitted Verilog path (the reference's CLI writes
+    them with ``--emit-dir``; the port's CLI has no such flag yet, though
+    :mod:`repro_torch.core.emit` writes the same text), attached to each
+    design entry as ``rtl`` exactly as in :func:`write_bench_json`."""
     def entry(e: DesignEval) -> dict:
         d = e.as_dict()
         if artifacts:
@@ -269,9 +270,10 @@ def write_bench_json(path: str, result: SearchResult,
     reference's ``BENCH_dse.json``; returns the payload.
 
     ``artifacts`` maps a dataflow set (``os``/``ws``/``switch``) to an
-    emitted Verilog netlist path (the reference emits them; the port does
-    not); each frontier entry gains an ``rtl`` key pointing at the netlist
-    of its wiring class.  ``metrics``/``provenance`` override the default
+    emitted Verilog netlist path (the reference's CLI writes them with
+    ``--emit-dir``; the port's CLI has no such flag yet); each frontier
+    entry gains an ``rtl`` key pointing at the netlist of its wiring
+    class.  ``metrics``/``provenance`` override the default
     observability sections (global registry snapshot + a fresh
     :func:`repro_torch.obs.provenance_record`).  ``partial=True`` marks an
     artifact flushed by an interrupted sweep — the payload covers only the

@@ -15,10 +15,12 @@
 ``log``
     the ``repro_torch`` module-logger hierarchy behind the CLIs' ``-v``
     flags.
+``vcd``
+    a deterministic IEEE 1364 value-change-dump writer for the netlist
+    simulator's node streams (:mod:`repro_torch.core.rtlsim`).
 
 Span and counter names are the reference's (``dse.evaluate``,
-``dse.designs_scored``, ...).  The reference's ``vcd`` waveform writer has
-no twin: it serves the RTL simulator, which the port does not run.
+``dse.designs_scored``, ``rtlsim.runs``, ``backend.lp_solves``, ...).
 """
 
 from .log import add_verbosity_flag, configure, get_logger
@@ -28,6 +30,7 @@ from .provenance import PROVENANCE_SCHEMA, git_sha, provenance_record
 from .trace import (Span, Tracer, disable_tracing, drain_events,
                     enable_tracing, instant, merge_events, save_trace, span,
                     span_counts, tracing_enabled)
+from .vcd import VCDWriter
 
 __all__ = [
     "span", "instant", "Span", "Tracer", "enable_tracing", "disable_tracing",
@@ -37,4 +40,5 @@ __all__ = [
     "set_metrics_enabled", "metrics_enabled",
     "PROVENANCE_SCHEMA", "provenance_record", "git_sha",
     "get_logger", "configure", "add_verbosity_flag",
+    "VCDWriter",
 ]

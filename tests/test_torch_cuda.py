@@ -1212,3 +1212,99 @@ def test_importing_the_dse_leaves_cuda_uninitialised(card):
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(src)))
     assert res.returncode == 0, res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the LEGO generator's simulators on the card (no kernel of their own: plain
+# PyTorch in float64/int64), held to the same calls on the CPU
+# ---------------------------------------------------------------------------
+
+def _gen_design(kind):
+    from repro_torch.core import workload as W
+    from repro_torch.core.adg import generate_adg
+    from repro_torch.core.dag import codegen
+    from repro_torch.core.dataflow import build_dataflow
+    from repro_torch.core.passes import run_backend
+    if kind == "GEMM-MJ":  # benchmarks/designs.py's recipes
+        wl = W.gemm()
+        specs = [(wl, build_dataflow(wl, spatial=[("k", 16), ("j", 16)],
+                                     temporal=[("i", 4), ("j", 4), ("k", 4),
+                                               ("i", 8)],
+                                     c=(1, 1), name="gemm-jk")),
+                 (wl, build_dataflow(wl, spatial=[("i", 16), ("j", 16)],
+                                     temporal=[("i", 4), ("j", 4),
+                                               ("k", 32)],
+                                     c=(1, 1), name="gemm-ij"))]
+    else:
+        loops = dict(spatial=[("m", 16), ("n", 16)],
+                     temporal=[("b", 2), ("m", 2), ("n", 2), ("d", 16)],
+                     c=(0, 0))
+        qk, pv = W.attention_qk(), W.attention_pv()
+        specs = [(qk, build_dataflow(qk, name="attn-qk", **loops)),
+                 (pv, build_dataflow(pv, name="attn-pv", **loops))]
+    adg = generate_adg(specs, name=kind)
+    dag = codegen(adg)
+    run_backend(dag)
+    return adg, dag
+
+
+def _gen_inputs(adg, names, seed):
+    import numpy as np
+    r = np.random.default_rng(seed)
+    out = {}
+    for dfn, tensors in names:
+        spec = adg.spec(dfn)
+        for t in tensors:
+            shape = spec.workload.tensor_shape(spec.workload.tensor(t),
+                                               spec.dataflow.sizes())
+            out[t] = torch.from_numpy(
+                r.integers(-4, 5, size=shape).astype(np.float64))
+    return out
+
+
+def _gen_same(card_res, cpu_res, fields):
+    assert torch.equal(card_res.output.cpu(), cpu_res.output)
+    for f in fields:
+        assert getattr(card_res, f) == getattr(cpu_res, f), f
+
+
+_GEN_RTL_FIELDS = ("fills", "mem_reads", "link_transfers", "cycles",
+                   "pipeline_depth", "checks", "hw")
+
+
+def test_gemm_mj_oracle_and_netlist_on_the_card_match_the_cpu(card):
+    from repro_torch.core.funcsim import oracle, simulate
+    from repro_torch.core.rtlsim import simulate_rtl
+    adg, dag = _gen_design("GEMM-MJ")
+    for seed, dfn in enumerate(adg.dataflow_names):
+        host = _gen_inputs(adg, [(dfn, ("X", "W"))], seed)
+        dev = {k: v.to(card) for k, v in host.items()}
+        spec = adg.spec(dfn)
+        wl, sizes = spec.workload, spec.dataflow.sizes()
+        ref = oracle(wl, sizes, dev)
+        assert ref.device.type == card.type
+        assert torch.equal(ref.cpu(), oracle(wl, sizes, host))
+        got = simulate_rtl(dag, adg, dfn, dev)
+        assert got.output.device.type == card.type
+        assert torch.equal(got.output, ref)
+        _gen_same(got, simulate_rtl(dag, adg, dfn, host), _GEN_RTL_FIELDS)
+        sim = simulate(adg, dfn, dev)
+        assert torch.equal(sim.output, ref)
+        _gen_same(sim, simulate(adg, dfn, host),
+                  ("fills", "mem_reads", "link_transfers", "cycles"))
+
+
+def test_staged_attention_on_the_card_matches_the_cpu(card):
+    from repro_torch.core.funcsim import staged_oracle
+    from repro_torch.core.rtlsim import simulate_rtl_stages
+    adg, dag = _gen_design("Attention")
+    host = _gen_inputs(adg, [("attn-qk", ("Q", "K")), ("attn-pv", ("V",))],
+                       3)
+    dev = {k: v.to(card) for k, v in host.items()}
+    stages, resident = ["attn-qk", "attn-pv"], {"S": "P"}
+    refs = staged_oracle(adg, stages, dev, resident=resident)
+    got = simulate_rtl_stages(dag, adg, stages, dev, resident=resident)
+    want = simulate_rtl_stages(dag, adg, stages, host, resident=resident)
+    for g, w, o in zip(got, want, refs):
+        assert torch.equal(g.output, o)
+        _gen_same(g, w, _GEN_RTL_FIELDS)
