@@ -183,12 +183,16 @@ Phases, each of which stops the run with a non-zero exit on failure:
       steps each way, the first loss within 1e-5 (relative) of the
       unsharded step's in the same run; step times and peak memory;
    c. dry run: ``python -m repro_torch.launch.dryrun`` on
-      mistral_nemo_12b x {train_4k, decode_32k}, jamba_1_5_large_398b x
-      long_500k and rwkv6_7b x train_4k (through the chunked recurrence)
-      on the 16x16 mesh of the "fake" group, four subprocesses at once,
-      each cell's status ``ok`` and its counted FLOPs per device within
-      its stated factor of the model's; GB/dev, Tc, Tm and Tx logged
-      (predictions from operation counts against the H100's constants).
+      mistral_nemo_12b x {train_4k, decode_32k} and jamba_1_5_large_398b x
+      long_500k on the 16x16 mesh of the "fake" group, three subprocesses
+      at once, each cell's status ``ok`` and its counted FLOPs per device
+      within its stated factor of the model's; GB/dev, Tc, Tm and Tx
+      logged (predictions from operation counts against the H100's
+      constants); and, in a fourth subprocess, RWKV-6's loss and gradients
+      at smoke width counted on a fake 2x2x4 mesh, a device's products
+      1/16 of the unsharded step's (this machine's torch once repeated a
+      layer's channel mix over ``model``; the full rwkv6_7b x train_4k
+      cell took 187 s to trace here and left the list).
 11. the DSE's evaluation on the card (``repro_torch.dse``: Evaluator,
    searches, supervised pool, serving replay, report; no kernel of its
    own), every search held to the NumPy engine's in the same run (names,
@@ -206,15 +210,14 @@ Phases, each of which stops the run with a non-zero exit on failure:
    d. a pool of 2 workers over ``small`` once CUDA is up: it spawns, and
       its evals and frontier are the in-process run's;
    e. ``Evaluator(serving=ServingSpec())`` (the reference's default trace
-      and SLO) over ``tiny``: every design's serving summary;
-   f. ``benchmarks/dse.py --models all --quick``'s settings (``tiny``, the
-      ten configs at seq 256, prefill, Gemmini baseline): the cross-model
-      winner, the scorecard and the winner's table.
+      and SLO) over ``tiny``: every design's serving summary (the
+      cross-model study runs through the CLI in phase 13b).
 12. the LEGO generator (``repro_torch.core``: ADG, DAG, LP/ILP back end,
    Verilog on the host; the simulators, plain PyTorch in float64/int64 and
    no kernel of their own, on the card), times logged beside the card's
    name and power limit: the paper's four fused 256-FU designs
-   (GEN_DESIGNS, ``benchmarks/designs.py``'s loops) built and emitted;
+   (GEN_DESIGNS, built from ``repro_torch.designs``, the port's copy of
+   ``benchmarks/designs.py``) built and emitted;
    every dataflow through ``oracle``, ``simulate`` and ``simulate_rtl`` on
    the card, each output equal to the card's oracle and every output,
    counter, FIFO and join check and ``hw`` record equal to the same call
@@ -223,6 +226,24 @@ Phases, each of which stops the run with a non-zero exit on failure:
    Conv2d-MNICOC's conv-icoc at ``oh = ow = 56`` (T = 112,896), funcsim
    not run on the CPU at that size; the FIFO words at a FIFO feeding a
    FIFO bit-exact, and a corrupted delay matching caught.
+13. the two front doors, each run in-process as a user runs it, on the
+   card, and held to the same command on the CPU or with the NumPy engine
+   (each a process of its own with CUDA hidden, all started with the phase
+   and run beside the card's runs): standard output with the wall times
+   masked, files byte for byte, the sweep JSON without walls and
+   provenance; times logged beside the card's name and power limit:
+   a. ``python -m repro_torch.generate_accelerator``: MobileNetV2 on
+      LEGO-MNICOC with ``--emit-rtl``; ``--model llama4_scout_17b_a16e
+      --seq 512`` on the fused attention class, its two-stage netlist
+      check (QK, softmax on the PPUs, PV) bit-exact on the card;
+      ``--model rwkv6_7b`` on the switch class with ``--vcd``;
+   b. ``python -m repro_torch.dse.batch_sweep --models all --quick`` (the
+      ten configs at seq 256 over ``tiny``, Gemmini baselines, the
+      one-architecture winner) against ``--engine numpy``;
+   c. a sweep of ``tiny`` with ``--nets MobileNetV2 --emit-dir`` against
+      ``--engine numpy``, its JSON fed to ``generate_accelerator --dse``.
+
+The seconds of each phase are logged at the end.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 Run from the repository root:  python3 chip_smoke.py
@@ -596,6 +617,10 @@ def bound(flops: float, nbytes: float,
 
 def main() -> int:
     t_start = time.perf_counter()
+    marks: list[tuple[str, float]] = []
+
+    def mark(phase: str) -> None:
+        marks.append((phase, time.perf_counter()))
     import torch
 
     from repro_torch.configs import get_config
@@ -613,6 +638,7 @@ def main() -> int:
     from repro_torch.serve.engine import generate
 
     # ---- 1. device --------------------------------------------------------
+    mark("1")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs the card")
     if torch.cuda.get_device_capability(0) != (9, 0):
@@ -631,6 +657,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
 
     # ---- 2. build ---------------------------------------------------------
+    mark("2")
     t0 = time.perf_counter()
     logs = _build.build_all()
     log(f"phase 2 build: {', '.join(_build.sources())} in "
@@ -726,6 +753,7 @@ def main() -> int:
         return x, dt, A, B, C, torch.full((Dm,), 0.5, device=dev)
 
     # ---- 3. kernels against their plain versions ---------------------------
+    mark("3")
     log("phase 3 kernels vs plain")
     t0 = time.perf_counter()
     # K1: (M, K, N); fp32 within 1e-5 of the output's scale, bf16 2e-2 and
@@ -996,6 +1024,7 @@ def main() -> int:
     log(f"phase 3 done in {time.perf_counter() - t0:.1f}s")
 
     # ---- 4. main paths at full width and depth, bf16 ----------------------
+    mark("4")
     counters = (flash_attention_cuda, decode_attention_cuda, rwkv6_cuda,
                 ssm_scan_cuda, gemm_cuda)
 
@@ -1155,6 +1184,7 @@ def main() -> int:
     log(f"phase 4g-4k done in {time.perf_counter() - t4:.1f}s")
 
     # ---- 5. fp32 consistency at mistral and rwkv width, depth 2 ------------
+    mark("5")
     log("phase 5 fp32 consistency (tol 1e-3: cuBLAS sums in another order "
         "for the 128-row forward than for the 2-row decode step, and the "
         "kernels than the plain versions)")
@@ -1212,6 +1242,7 @@ def main() -> int:
                      reset, launches, want_fwd=(2, 0, 0, 0, 0))
 
     # ---- 6. gemma2_9b smoke width through generate --------------------------
+    mark("6")
     cfg3 = dataclasses.replace(get_config("gemma2_9b", reduced=True),
                                dtype="float32")
     log(f"phase 6 {cfg3.name}: window {cfg3.layer_pattern[0].window}, "
@@ -1262,6 +1293,7 @@ def main() -> int:
     del params4
 
     # ---- 7. timings at the main paths' shapes -----------------------------
+    mark("7")
     log("phase 7 timings (CUDA events; bf16 unless marked)")
     log(f"  card at the start: {_clocks()}")
     bf = torch.bfloat16
@@ -1540,22 +1572,34 @@ def main() -> int:
     log(f"  card at the end: {_clocks()}")
 
     # ---- 8. training ------------------------------------------------------
+    mark("8")
     _training(dev, reset)
 
     # ---- 9. DSE scoring engine ---------------------------------------------
+    mark("9")
     _dse(dev, smi)
 
     # ---- 10. sharded entry points on a one-card mesh -------------------------
+    mark("10")
     _sharded(dev, reset, launches)
 
     # ---- 11. the DSE's evaluation on the card --------------------------------
+    mark("11")
     _dse_eval(dev, smi)
 
     # ---- 12. the LEGO generator on the card ---------------------------------
+    mark("12")
     _generator(dev, smi, t_start)
 
+    # ---- 13. the front doors on the card ------------------------------------
+    mark("13")
+    _front_doors(dev, smi, t_start)
+
+    mark("end")
+    log("per-phase seconds: " + ", ".join(
+        f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))
     log(f"chip_smoke: all phases passed in "
-        f"{time.perf_counter() - t_start:.1f}s")
+        f"{time.perf_counter() - t_start:.1f}s [{smi}]")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -2915,15 +2959,22 @@ def _dse(dev, smi: str) -> None:
 # model's FLOPs per device: the larger of the cell's ratios under torch 2.13
 # (on the CPU) and 2.11 (this machine's), with 5% to spare.  The ratios
 # hold attention over the context, which the model FLOPs leave out, and
-# remat's recomputation (train_4k 1.616 and 1.312; decode_32k 14.973,
-# long_500k 1156.935 and rwkv6 1.292 under both, since local_call splits
-# a mesh dim it would otherwise leave repeating the work and each device
-# holds its q heads and their kv head).  A mesh dim on which every device
-# repeats the same work fails the cell.
+# remat's recomputation (train_4k 1.616 and 1.312; decode_32k 14.973 and
+# long_500k 1156.935 under both, since local_call splits a mesh dim it
+# would otherwise leave repeating the work and each device holds its q
+# heads and their kv head).  A mesh dim on which every device repeats the
+# same work fails the cell.  rwkv6_7b x train_4k (187 s to trace on this
+# machine's host) left the list: RWKV-6's split is counted on a small fake
+# mesh instead (RWKV_SPLIT_*).
 DRYRUN_CELLS = (("mistral_nemo_12b", "train_4k", 1.70),
                 ("mistral_nemo_12b", "decode_32k", 15.7),
-                ("jamba_1_5_large_398b", "long_500k", 1215.0),
-                ("rwkv6_7b", "train_4k", 1.36))
+                ("jamba_1_5_large_398b", "long_500k", 1215.0))
+# 10c: RWKV-6's loss and gradients at smoke width on a fake pod 2 x data 2
+# x model 4 mesh, as tests/test_torch_sharding_counts.py counts them: a
+# device's products must be 1/16 of the unsharded step's (torch 2.11 once
+# ran a layer's channel mix on every device of model)
+RWKV_SPLIT_MESH = ((2, 2, 4), ("pod", "data", "model"))
+RWKV_SPLIT_B, RWKV_SPLIT_T, RWKV_SPLIT_VOCAB = 16, 32, 509
 SHARD_LOSS_RTOL = 1e-5
 
 
@@ -2948,6 +2999,10 @@ def _sharded(dev, reset, launches) -> None:
          "--shape", shape, "--out", out_dir], env=env, cwd=ROOT,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for arch, shape, _ in DRYRUN_CELLS]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke._rwkv6_split()"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True))
     try:
         with local_group(str(dev)):
             mesh = shape_mesh((1, 1), ("data", "model"), device_type="cuda")
@@ -3124,10 +3179,69 @@ def _sharded_train(dev, mesh, reset) -> None:
     torch.cuda.empty_cache()
 
 
+def _rwkv6_split() -> None:
+    """10c, in a subprocess with CUDA hidden: RWKV-6's loss and gradients
+    counted (``launch.opcount``) under fake tensors, unsharded and a device
+    of the fake ``RWKV_SPLIT_MESH``; prints one JSON line."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import fake_group, shape_mesh
+    from repro_torch.launch.opcount import OpCounter
+    from repro_torch.models import transformer as TF
+    from repro_torch.parallel.sharding import (distribute, distribute_tree,
+                                               shard_params_spec)
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config("rwkv6_7b", reduced=True),
+                              vocab_size=RWKV_SPLIT_VOCAB, dtype="float32")
+
+    def count(mesh=None) -> float:
+        fake = FakeTensorMode()
+        with fake:
+            params = TF.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+            batch = {k: torch.zeros((RWKV_SPLIT_B, RWKV_SPLIT_T),
+                                    dtype=torch.int32)
+                     for k in ("tokens", "labels")}
+            if mesh is not None:
+                params = distribute_tree(
+                    params, shard_params_spec(params, mesh), mesh)
+                batch = {k: distribute(v, mesh, ("batch", "none"))
+                         for k, v in batch.items()}
+        with fake, OpCounter() as oc:
+            loss_and_grads(cfg, params, batch, mesh=mesh)
+        return oc.counts.flops
+
+    n = 1
+    for d in RWKV_SPLIT_MESH[0]:
+        n *= d
+    whole = count()
+    with fake_group(n):
+        per = count(shape_mesh(*RWKV_SPLIT_MESH))
+    print(json.dumps({"whole": whole, "per_device": per, "devices": n,
+                      "torch": torch.__version__}), flush=True)
+
+
 def _dryrun_records(procs, out_dir) -> None:
     """10c: waits for the dry run's subprocesses and reads their records."""
     import os
     excessive = []
+    out, _ = procs[-1].communicate(timeout=600)
+    if procs[-1].returncode != 0:
+        fail(f"10c RWKV-6 split count: exit {procs[-1].returncode}\n"
+             f"{out[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    if not abs(rec["per_device"] * rec["devices"] - rec["whole"]) <= \
+            1e-9 * rec["whole"]:
+        fail(f"10c RWKV-6 split count: a device counts "
+             f"{rec['per_device']:.6g} of {rec['whole']:.6g} FLOPs over "
+             f"{rec['devices']} devices")
+    log(f"10c RWKV-6 split (smoke width, B={RWKV_SPLIT_B} T={RWKV_SPLIT_T}, "
+        f"fake {'x'.join(map(str, RWKV_SPLIT_MESH[0]))} mesh, torch "
+        f"{rec['torch']}): a device counts {rec['per_device']:.6g} FLOPs, "
+        f"1/{rec['devices']} of the unsharded step's {rec['whole']:.6g}")
     for p, (arch, shape, excess) in zip(procs, DRYRUN_CELLS):
         out, _ = p.communicate(timeout=600)
         path = os.path.join(out_dir, f"{arch}__{shape}__pod16x16.json")
@@ -3207,13 +3321,10 @@ def _dse_eval(dev, smi: str) -> None:
 
     import torch
 
-    from repro_torch.configs import ARCH_IDS
     from repro_torch.dse import batch_sweep as B
     from repro_torch.dse.cache import MappingCache
     from repro_torch.dse.evaluate import Evaluator, load_zoo
-    from repro_torch.dse.report import (cross_model_winner, format_frontier,
-                                        format_models, format_scorecard,
-                                        format_serving)
+    from repro_torch.dse.report import format_frontier, format_serving
     from repro_torch.dse.search import evolve_search, exhaustive_search
     from repro_torch.dse.space import SPACES
     from repro_torch.dse.supervisor import Supervisor
@@ -3331,26 +3442,6 @@ def _dse_eval(dev, smi: str) -> None:
         f"engine on the card {t_card5:.3f} s ({g5.cache_stats['misses']} "
         f"misses), NumPy engine {t_np5:.3f} s")
 
-    # 11f. cross-model: benchmarks/dse.py --models all --quick
-    mzoo = load_zoo(ARCH_IDS, seq=256)
-    g6, t_card6 = timed(lambda: exhaustive_search(tiny, Evaluator(
-        zoo=mzoo, engine="torch", device=dev, baseline="gemmini")))
-    w6, t_np6 = timed(lambda: exhaustive_search(tiny, Evaluator(
-        zoo=mzoo, engine="numpy", baseline="gemmini")))
-    _dse_same_result("11f models", g6, w6)
-    (gw, gs, gm), (ww, ws, wm) = (cross_model_winner(g6.frontier),
-                                  cross_model_winner(w6.frontier))
-    if (gw.point.name, gm) != (ww.point.name, wm) or \
-            format_scorecard(g6.evals) != format_scorecard(w6.evals) or \
-            format_models(g6) != format_models(w6):
-        fail(f"11f: the cross-model winner or scorecard differs: "
-             f"{gw.point.name} {gs} vs {ww.point.name} {ws}")
-    log(f"  11f cross-model ({len(mzoo)} configs, {tiny.name}, seq 256, "
-        f"prefill, Gemmini baseline): winner and scorecard == the NumPy "
-        f"engine's; torch engine on the card {t_card6:.3f} s "
-        f"({g6.cache_stats['misses']} misses), NumPy engine {t_np6:.3f} s")
-    for line in format_models(g6).splitlines():
-        log(f"     {line}")
     log(f"phase 11 done in {time.perf_counter() - t_phase:.1f}s")
 
 
@@ -3358,33 +3449,9 @@ def _dse_eval(dev, smi: str) -> None:
 # phase 12: the LEGO generator on the card
 # ---------------------------------------------------------------------------
 
-# the reference's recipes for the paper's fused 256-FU designs
-# (benchmarks/designs.py), written out: (workload, dataflow, spatial loops,
-# temporal loops, control-flow vector c) per dataflow
-GEN_DESIGNS = {
-    "GEMM-MJ": [
-        ("gemm", "gemm-jk", [("k", 16), ("j", 16)],
-         [("i", 4), ("j", 4), ("k", 4), ("i", 8)], (1, 1)),
-        ("gemm", "gemm-ij", [("i", 16), ("j", 16)],
-         [("i", 4), ("j", 4), ("k", 32)], (1, 1))],
-    "Conv2d-MNICOC": [
-        ("conv2d", "conv-ohow", [("ow", 16), ("oh", 16)],
-         [("n", 1), ("ow", 2), ("oh", 2), ("oc", 8), ("ic", 8), ("kh", 3),
-          ("kw", 3)], (0, 0)),
-        ("conv2d", "conv-icoc", [("ic", 16), ("oc", 16)],
-         [("n", 1), ("oc", 2), ("ic", 2), ("oh", 8), ("ow", 8), ("kh", 3),
-          ("kw", 3)], (1, 1))],
-    "MTTKRP-MJ": [
-        ("mttkrp", "mttkrp-ij", [("i", 16), ("j", 16)],
-         [("i", 2), ("k", 8), ("l", 8)], (0, 0)),
-        ("mttkrp", "mttkrp-kj", [("k", 16), ("j", 16)],
-         [("i", 16), ("k", 2), ("l", 8)], (1, 1))],
-    "Attention": [
-        ("attention_qk", "attn-qk", [("m", 16), ("n", 16)],
-         [("b", 2), ("m", 2), ("n", 2), ("d", 16)], (0, 0)),
-        ("attention_pv", "attn-pv", [("m", 16), ("n", 16)],
-         [("b", 2), ("m", 2), ("n", 2), ("d", 16)], (0, 0))],
-}
+# the paper's fused 256-FU designs (repro_torch.designs, the port's copy of
+# benchmarks/designs.py)
+GEN_DESIGNS = ("GEMM-MJ", "Conv2d-MNICOC", "MTTKRP-MJ", "Attention")
 # the long run: Conv2d-MNICOC with conv-icoc's oh and ow at 56, the spatial
 # size of ResNet-50's conv2_x layers (T = 2*2*56*56*3*3 = 112,896 cycles,
 # 28.9 M MACs)
@@ -3394,16 +3461,19 @@ GEN_SOFTMAX_RTOL = 1e-12
 
 
 def _gen_recipe(name: str, ohow: int | None = None):
-    from repro_torch.core import workload as W
+    """The design's (workload, dataflow) pairs; with ``ohow``, conv-icoc's
+    oh and ow loops run to ``ohow``."""
     from repro_torch.core.dataflow import build_dataflow
+    from repro_torch.designs import DESIGNS
     specs = []
-    for wname, dfn, spatial, temporal, c in GEN_DESIGNS[name]:
-        if ohow is not None and dfn == "conv-icoc":
-            temporal = [(d, ohow if d in ("oh", "ow") else n)
-                        for d, n in temporal]
-        wl = getattr(W, wname)()
-        specs.append((wl, build_dataflow(wl, spatial=spatial,
-                                         temporal=temporal, c=c, name=dfn)))
+    for wl, df in DESIGNS[name]():
+        if ohow is not None and df.name == "conv-icoc":
+            df = build_dataflow(
+                wl, spatial=[(l.dim, l.size) for l in df.spatial],
+                temporal=[(l.dim, ohow if l.dim in ("oh", "ow") else l.size)
+                          for l in df.temporal],
+                c=tuple(int(v) for v in df.c), name=df.name)
+        specs.append((wl, df))
     return specs
 
 
@@ -3656,6 +3726,220 @@ def _generator(dev, smi: str, t_start: float) -> None:
         f"CPU at this size")
     _gen_repair(dev)
     log(f"phase 12 done in {time.perf_counter() - t_phase:.1f}s "
+        f"(script at {time.perf_counter() - t_start:.1f}s) [{smi}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the two front doors on the card
+# ---------------------------------------------------------------------------
+
+# the wall times a front door prints (generation, Verilog, the sweep)
+_WALL_S = r"(generation time: |\) in |configs in )[0-9.]+s"
+
+
+def _front_run(main, argv, cwd: Path) -> tuple[str, float]:
+    """A front door's ``main(argv)`` run in-process from ``cwd``: its
+    standard output and its seconds.  The metrics registry starts empty,
+    as in a process of its own."""
+    import contextlib
+    import io
+    import os
+
+    from repro_torch.obs import METRICS
+    cwd.mkdir(parents=True, exist_ok=True)
+    here, buf = os.getcwd(), io.StringIO()
+    METRICS.reset()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(cwd)
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        os.chdir(here)
+    if rc != 0:
+        fail(f"13: {' '.join(argv)} returned {rc}\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+class _Counterpart:
+    """The same front door on the CPU (or with the NumPy engine) in a
+    process of its own, CUDA hidden, started at once so that it runs
+    beside the card's run; a thread notes when it ends."""
+
+    def __init__(self, module: str, argv: list, cwd: Path):
+        import os
+        import threading
+        cwd.mkdir(parents=True, exist_ok=True)
+        self.argv = argv
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", module, *argv], cwd=cwd,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     CUDA_VISIBLE_DEVICES=""),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out = self.err = ""
+        self.seconds = None
+        self.thread = threading.Thread(target=self._wait, daemon=True)
+        self.thread.start()
+
+    def _wait(self) -> None:
+        self.out, self.err = self.proc.communicate()
+        self.seconds = time.perf_counter() - self.t0
+
+    def result(self) -> tuple[str, float]:
+        self.thread.join(timeout=600)
+        if self.proc.returncode != 0:
+            fail(f"13: {' '.join(self.argv)} on the CPU returned "
+                 f"{self.proc.returncode}\n{self.err[-2000:]}")
+        return self.out, self.seconds
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _front_same(what, a: str, b: str) -> None:
+    import re
+    if re.sub(_WALL_S, r"\1<t>s", a) != re.sub(_WALL_S, r"\1<t>s", b):
+        fail(f"13 {what}: the card's output differs from its counterpart's"
+             f"\n{a[-1500:]}\n---\n{b[-1500:]}")
+
+
+def _sweep_payload(path: Path) -> dict:
+    """A sweep's JSON without its walls, provenance, engine and device
+    (what differs between the two engines' runs by design), and without
+    what ``--emit-dir`` adds: the netlists' paths and the back end's
+    metrics."""
+    d = json.loads(path.read_text())
+    for k in ("wall_s", "provenance", "artifacts"):
+        d.pop(k, None)
+    for k in ("total_wall_s", "engine", "device"):
+        d["meta"].pop(k, None)
+    for e in d["frontier"] + d["designs"]:
+        e.pop("rtl", None)
+    for part in d["metrics"].values():
+        for k in [k for k in part if k.startswith("backend.")]:
+            del part[k]
+    return d
+
+
+def _front_doors(dev, smi: str, t_start: float) -> None:
+    """Phase 13: ``python -m repro_torch.generate_accelerator`` in its three
+    modes and the design search's CLI, each on the card (in this process)
+    and held to the same command on the CPU (the generator) or with the
+    NumPy engine (the CLI), each counterpart a process of its own started
+    with the phase and run alongside."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import generate_accelerator as GA
+    from repro_torch.dse import batch_sweep as B
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"phase 13 the front doors [{smi}]")
+    scratch = ROOT / ".chipscratch"
+    scratch.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="front_", dir=scratch))
+    card = ["--device", str(dev)]
+    modes = (("MobileNetV2 on LEGO-MNICOC",
+              ["--net", "MobileNetV2", "--emit-rtl", "o.v"], ["o.v"]),
+             ("llama4_scout_17b_a16e seq 512 (attention_fused)",
+              ["--model", "llama4_scout_17b_a16e", "--seq", "512"], []),
+             ("rwkv6_7b (switch) with the VCD",
+              ["--model", "rwkv6_7b", "--vcd", "w.vcd"], ["w.vcd"]))
+    quick = ["--models", "all", "--quick", "-q", "--out", "m.json"]
+    sweep = ["--space", "tiny", "--nets", "MobileNetV2", "-q", "--out",
+             "s.json"]
+    ga, cli = "repro_torch.generate_accelerator", "repro_torch.dse.batch_sweep"
+    others = []
+    try:
+        # every counterpart starts now, on the CPU beside the card's runs
+        others = [_Counterpart(ga, argv + ["--device", "cpu"],
+                               work / f"ga{i}" / "cpu")
+                  for i, (_, argv, _) in enumerate(modes)]
+        others.append(_Counterpart(cli, quick + ["--engine", "numpy"],
+                                   work / "models_numpy"))
+        others.append(_Counterpart(cli, sweep + ["--engine", "numpy"],
+                                   work / "sweep_numpy"))
+
+        # 13a. generate_accelerator: the paper's design, a model on the
+        # fused attention class, a model on the switch class with its VCD
+        for i, (label, argv, files) in enumerate(modes):
+            got, t_card = _front_run(GA.main, argv + card,
+                                     work / f"ga{i}" / "card")
+            want, t_cpu = others[i].result()
+            _front_same(f"generate_accelerator {label}", got, want)
+            for f in files:
+                if (work / f"ga{i}" / "card" / f).read_bytes() != \
+                        (work / f"ga{i}" / "cpu" / f).read_bytes():
+                    fail(f"13 generate_accelerator {label}: {f} differs "
+                         "between the card and the CPU")
+            if i == 1 and "QK + PV bit-exact" not in got:
+                fail("13: the two-stage netlist check did not run")
+            size = ", ".join(
+                f"{f} {(work / f'ga{i}' / 'card' / f).stat().st_size} bytes"
+                for f in files)
+            log(f"  13a generate_accelerator {label}: card {t_card:.1f} s, "
+                f"CPU {t_cpu:.1f} s (a process of its own, alongside); "
+                f"stdout (wall times masked)"
+                f"{' and ' + size if files else ''} identical")
+            for line in got.splitlines()[-3:]:
+                log(f"     {line}")
+
+        # 13b. the cross-model study, torch engine on the card against
+        # the NumPy engine
+        got, t_card = _front_run(B.main, quick + card, work / "models_card")
+        want, t_np = others[3].result()
+        _front_same("--models all --quick", got, want)
+        if _sweep_payload(work / "models_card" / "m.json") != \
+                _sweep_payload(work / "models_numpy" / "m.json"):
+            fail("13b: BENCH_models.json differs between the engines")
+        log(f"  13b --models all --quick: torch engine on the card "
+            f"{t_card:.1f} s, NumPy engine {t_np:.1f} s (a process of its "
+            f"own); stdout and BENCH_models.json identical (walls and "
+            f"provenance aside)")
+        for line in got.splitlines():
+            if line.startswith("== cross-model winner"):
+                log(f"     {line}")
+
+        # 13c. a sweep with a CNN and the frontier's Verilog, whose JSON
+        # feeds generate_accelerator --dse
+        got, t_card = _front_run(B.main, sweep + ["--emit-dir", "rtl"]
+                                 + card, work / "sweep_card")
+        want, t_np = others[4].result()
+        if _sweep_payload(work / "sweep_card" / "s.json") != \
+                _sweep_payload(work / "sweep_numpy" / "s.json"):
+            fail("13c: the sweep's JSON differs between the engines")
+        rtl = json.loads((work / "sweep_card" / "s.json").read_text())[
+            "artifacts"]
+        for path in rtl.values():
+            text = (work / "sweep_card" / path).read_text()
+            if not text.startswith("// generated by") or "pipe(" in text:
+                fail(f"13c: {path} is not the emitted Verilog")
+        js = str(work / "sweep_card" / "s.json")
+        pick = ["--dse", js, "--pick", "edp"]
+        g2, t_card2 = _front_run(GA.main, pick + card, work / "pick_card")
+        w2, t_cpu2 = _front_run(GA.main, pick + ["--device", "cpu"],
+                                work / "pick_cpu")
+        _front_same("--dse pick", g2, w2)
+        log(f"  13c sweep tiny + MobileNetV2 --emit-dir ({len(rtl)} "
+            f"netlists: {', '.join(sorted(rtl))}): torch engine on the card "
+            f"{t_card:.1f} s, NumPy engine {t_np:.1f} s, JSON identical; "
+            f"generate_accelerator --dse --pick edp: card {t_card2:.1f} s, "
+            f"CPU {t_cpu2:.1f} s, stdout identical")
+        log(f"     {g2.splitlines()[0]}")
+    finally:
+        for o in others:
+            o.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 13 done in {time.perf_counter() - t_phase:.1f}s "
         f"(script at {time.perf_counter() - t_start:.1f}s) [{smi}]")
 
 

@@ -56,3 +56,23 @@ def get_config(name: str, reduced: bool = False):
             f"{', '.join(PORTED_IDS)}")
     mod = importlib.import_module(f"{__name__}.{mod_name}")
     return mod.smoke() if reduced else mod.full()
+
+
+def resolve_ids(spec) -> list[str]:
+    """CLI id resolution: ``"all"`` → every assigned architecture; otherwise
+    a comma-separated string (or iterable) of ids/aliases → canonical ids,
+    order-preserving and deduped.  Unknown ids raise ``KeyError`` naming the
+    known ones."""
+    if isinstance(spec, str):
+        if spec.strip().lower() == "all":
+            return list(ARCH_IDS)
+        spec = [s for s in (p.strip() for p in spec.split(",")) if s]
+    out: list[str] = []
+    for name in spec:
+        cid = ALIASES.get(name, name)
+        if cid not in ARCH_IDS:
+            raise KeyError(f"unknown config id {name!r}; known: "
+                           f"{', '.join(ARCH_IDS)} (or 'all')")
+        if cid not in out:
+            out.append(cid)
+    return out

@@ -35,6 +35,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..obs import METRICS
+
 from .dataflow import Dataflow, build_dataflow
 from .perf_model import HWConfig, LayerPerf, layer_perf
 from .workload import Workload
@@ -166,10 +168,13 @@ def enumerate_candidates(
     orders = _orders(list(wl.iter_dims), wl)
     out: list[Candidate] = []
     seen: set[tuple] = set()
+    n_dup = 0
 
     def add(cand: Candidate) -> bool:
+        nonlocal n_dup
         key = (cand.spatial_idx, cand.facs, cand.temporal)
         if key in seen:
+            n_dup += 1
             return False
         seen.add(key)
         out.append(cand)
@@ -200,6 +205,10 @@ def enumerate_candidates(
                 if add(Candidate(si, facs, temporal)) and tile_search:
                     for split in _tile_splits(temporal):
                         add(Candidate(si, facs, split))
+    # pruned = duplicate (spatial, facs, temporal) keys dropped by dedup —
+    # the "candidates enumerated vs pruned" ratio in the bench metrics
+    METRICS.counter("mapper.candidates_enumerated").inc(len(out))
+    METRICS.counter("mapper.candidates_pruned").inc(n_dup)
     return out
 
 

@@ -30,6 +30,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..obs import METRICS
+
 from .mapper import (Candidate, Mapping, SpatialChoice, enumerate_candidates,
                      materialize)
 from .perf_model import NO_TRUE_SIZE, HWConfig, LayerPerf, perf_kernel
@@ -217,6 +219,9 @@ def best_mappings(
     r = evaluate_batch(batch, hw, dims_list, ppu_list,
                        data_nodes_per_tensor=data_nodes_per_tensor,
                        engine=engine, device=device)
+    METRICS.counter("mapper.batch_solves").inc()
+    METRICS.counter("mapper.layers_solved").inc(len(queries))
+    METRICS.counter("mapper.candidates_scored").inc(batch.n_candidates)
     winners = _winners(batch, r["cycles"], r["energy_pj"], objective)
     rows = winners
     if engine == "torch":

@@ -47,6 +47,60 @@ def _lp_edges(dag: DAG) -> list[DAGEdge]:
             if not dag.nodes[e.src].elastic and not dag.nodes[e.dst].elastic]
 
 
+def _chain_fifo_terms(dag: DAG) -> list[tuple]:
+    """The FIFOs on a chain of elastic nodes, as delay terms of the LP.
+
+    Every elastic node is anchored as :func:`repro_torch.core.emit.
+    anchored_sched` anchors it (nodes in id order: through its first
+    out-edge whose consumer is non-elastic or already anchored, else at
+    its first source, else at 0), kept symbolically as ``A = D[a] + o``
+    with ``a`` a non-elastic node or ``None``.  Returns ``(fifo, a, b,
+    off, cap, d_local)`` for each FIFO with local delays whose source is
+    elastic or whose anchoring consumer is, where its delay is ``D[a] −
+    D[b] + off + d_local`` (``b`` the source's anchor node); FIFOs whose
+    delay is a constant are left out."""
+    outs: dict[int, list[DAGEdge]] = defaultdict(list)
+    ins: dict[int, list[DAGEdge]] = defaultdict(list)
+    for e in dag.edges:
+        outs[e.src].append(e)
+        ins[e.dst].append(e)
+    anchor: dict[int, tuple] = {}
+    via: dict[int, int | None] = {}
+
+    def of(nid):
+        return (nid, 0.0) if not dag.nodes[nid].elastic else anchor.get(nid)
+
+    for nid in sorted(dag.nodes):
+        if not dag.nodes[nid].elastic:
+            continue
+        cons = [e for e in outs[nid] if of(e.dst) is not None]
+        if cons:
+            e = cons[0]
+            a, o = of(e.dst)
+            anchor[nid] = (a, o - dag.nodes[e.dst].latency - e.el)
+            via[nid] = e.dst
+        else:
+            src = ins[nid]
+            anchor[nid] = (of(src[0].src) if src and of(src[0].src)
+                           is not None else (None, 0.0))
+            via[nid] = None
+    terms = []
+    for nid, node in sorted(dag.nodes.items()):
+        dloc = node.meta.get("d_local") if node.elastic else None
+        if not dloc or not ins[nid]:
+            continue
+        src = ins[nid][0].src
+        if not (dag.nodes[src].elastic or (
+                via[nid] is not None and dag.nodes[via[nid]].elastic)):
+            continue
+        (a, oa), (b, ob) = anchor[nid], of(src)
+        if a == b:
+            continue
+        cap = max(1, int(node.meta.get("depth", 1)))
+        terms.append((nid, a, b, oa - ob, cap, dloc))
+    return terms
+
+
 @dataclass
 class DelayMatchResult:
     register_bits: int
@@ -131,6 +185,21 @@ def delay_matching(dag: DAG, broadcast_virtual_cost: bool = False) -> DelayMatch
                 for dl in dloc.values():
                     add_row([(lu, 1.0), (lv, -1.0)], float(dl - Lv))
                     add_row([(lv, 1.0), (lu, -1.0)], float(cap - dl + Lv))
+
+    # FIFO chains: the rows above skip a FIFO fed by a FIFO or anchored
+    # through one, so nothing kept its delay within its capacity.  Such a
+    # FIFO's delay is measured between anchored times, as the netlist
+    # schedule measures it (emit.anchored_sched, rtlsim._schedule):
+    # p_d = A[fifo] − A[source] + d_local(d), each A the potential of one
+    # non-elastic node plus a constant.  No row is added where no FIFO
+    # feeds a FIFO.
+    for _, fa, fb, off, cap, dloc in _chain_fifo_terms(dag):
+        for dl in dloc.values():
+            # 0 ≤ D_fa − D_fb + off + dl ≤ cap
+            add_row([(idx[x], s) for x, s in ((fb, 1.0), (fa, -1.0))
+                     if x is not None], float(off + dl))
+            add_row([(idx[x], s) for x, s in ((fa, 1.0), (fb, -1.0))
+                     if x is not None], float(cap - off - dl))
 
     A = sp.csr_matrix((vals, (rows, cols)), shape=(len(b), n_var))
     METRICS.counter("backend.lp_solves").inc()

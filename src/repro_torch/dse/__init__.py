@@ -12,8 +12,9 @@ strategies
 degradation) + resumable :class:`RunLedger` checkpoints
 ``faults``      — seeded deterministic fault injection
 ``report``      — frontier and scorecard text, cross-model winner, the
-sweep's JSON writers
-``batch_sweep`` — design-batched sweep: prefill on the card, then evaluate
+sweep's JSON writers, the frontier's Verilog (``emit_frontier_rtl``)
+``batch_sweep`` — design-batched sweep (prefill on the card, then evaluate)
+and the design search's command line, the twin of ``benchmarks/dse.py``
 (``python -m repro_torch.dse.batch_sweep``)
 
 Importing this package loads torch but does not initialise CUDA.  Unlike

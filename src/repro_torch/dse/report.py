@@ -1,11 +1,15 @@
 """Frontier reporting, the twin of the reference's ``repro.dse.report``:
-terminal tables (character for character the reference's) and the sweep /
-cross-model JSON writers (the latter with its "one-architecture" winner).
-The writers write only to the path their caller names."""
+terminal tables (character for character the reference's), the sweep /
+cross-model JSON writers (the latter with its "one-architecture" winner)
+and :func:`emit_frontier_rtl`, the twin of ``benchmarks/dse.py``'s
+``--emit-dir`` writer.  The writers write only to the path their caller
+names."""
 
 from __future__ import annotations
 
 import math
+import os
+import time
 
 from ..obs import METRICS, provenance_record
 
@@ -15,7 +19,7 @@ from .search import SearchResult
 
 __all__ = ["format_scorecard", "format_frontier", "write_bench_json",
            "cross_model_winner", "format_models", "write_models_json",
-           "format_serving"]
+           "format_serving", "emit_frontier_rtl"]
 
 
 def _observability_sections(metrics: dict | None,
@@ -194,10 +198,9 @@ def write_models_json(path: str, result: SearchResult,
     its geomean selection score (:func:`cross_model_winner`) — picked among
     the non-dominated designs so the "one architecture" answer respects the
     cycles/energy/area trade-off, not raw speed alone.  ``artifacts`` maps a
-    dataflow set to an emitted Verilog path (the reference's CLI writes
-    them with ``--emit-dir``; the port's CLI has no such flag yet, though
-    :mod:`repro_torch.core.emit` writes the same text), attached to each
-    design entry as ``rtl`` exactly as in :func:`write_bench_json`."""
+    dataflow set to an emitted Verilog path (:func:`emit_frontier_rtl`,
+    the CLI's ``--emit-dir``), attached to each design entry as ``rtl``
+    exactly as in :func:`write_bench_json`."""
     def entry(e: DesignEval) -> dict:
         d = e.as_dict()
         if artifacts:
@@ -270,10 +273,9 @@ def write_bench_json(path: str, result: SearchResult,
     reference's ``BENCH_dse.json``; returns the payload.
 
     ``artifacts`` maps a dataflow set (``os``/``ws``/``switch``) to an
-    emitted Verilog netlist path (the reference's CLI writes them with
-    ``--emit-dir``; the port's CLI has no such flag yet); each frontier
-    entry gains an ``rtl`` key pointing at the netlist of its wiring
-    class.  ``metrics``/``provenance`` override the default
+    emitted Verilog netlist path (:func:`emit_frontier_rtl`, the CLI's
+    ``--emit-dir``); each frontier entry gains an ``rtl`` key pointing at
+    the netlist of its wiring class.  ``metrics``/``provenance`` override the default
     observability sections (global registry snapshot + a fresh
     :func:`repro_torch.obs.provenance_record`).  ``partial=True`` marks an
     artifact flushed by an interrupted sweep — the payload covers only the
@@ -313,3 +315,40 @@ def write_bench_json(path: str, result: SearchResult,
         payload["best"]["goodput"] = result.best("goodput").point.name
     atomic_write_json(path, payload, indent=1)
     return payload
+
+
+# ---------------------------------------------------------------------------
+# emitted hardware for the frontier (--emit-dir)
+# ---------------------------------------------------------------------------
+
+def emit_frontier_rtl(result: SearchResult, out_dir: str) -> dict:
+    """Emit one structural-Verilog netlist per wiring class on the frontier.
+
+    Every frontier design belongs to one dataflow set; each set is realized
+    by a generated demo ADG (:data:`repro_torch.designs.SET_TO_DESIGN`),
+    built, run through the optimizing back end and emitted on the host, so
+    a sweep ends in inspectable, simulable hardware instead of a dict of
+    statistics.  Returns ``{dataflow_set: path}``; the text is the
+    reference's byte for byte."""
+    from ..core.dag import codegen
+    from ..core.emit import build_netlist
+    from ..core.passes import run_backend
+    from ..designs import SET_TO_DESIGN, build_design
+
+    os.makedirs(out_dir, exist_ok=True)
+    artifacts: dict[str, str] = {}
+    for ds in sorted({e.point.dataflow_set for e in result.frontier}):
+        design = SET_TO_DESIGN[ds]
+        t0 = time.perf_counter()
+        dag = codegen(build_design(design))
+        run_backend(dag)
+        nl = build_netlist(dag)
+        text = nl.verilog()
+        path = os.path.join(out_dir, f"{design}.v")
+        with open(path, "w") as f:
+            f.write(text)
+        st = nl.stats(text)
+        artifacts[ds] = path
+        print(f"  emitted {path} ({st['instances']} instances, "
+              f"{st['lines']} lines) in {time.perf_counter()-t0:.1f}s")
+    return artifacts

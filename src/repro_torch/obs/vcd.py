@@ -38,7 +38,9 @@ def _idcode(i: int) -> str:
 
 
 class VCDWriter:
-    """Collects real-valued signal streams and renders one VCD file."""
+    """Collects real-valued signal streams and renders one VCD file (the
+    reference's text; NumPy, imported on first use, finds a stream's
+    changes and orders the records)."""
 
     def __init__(self, path: str | None = None, design: str = "design",
                  timescale: str = "1ns"):
@@ -47,7 +49,8 @@ class VCDWriter:
         self.timescale = timescale
         self._vars: list[tuple[str, str]] = []   # (idcode, name)
         self._by_name: dict[str, str] = {}
-        self._changes: dict[int, list[tuple[str, float]]] = {}
+        # change records in recording order: (times, idcode, values)
+        self._chunks: list[tuple] = []
         self._offset = 0
         self._t_end = 0
 
@@ -65,21 +68,24 @@ class VCDWriter:
     # -- recording ---------------------------------------------------------
     def record(self, t: int, code: str, value: float) -> None:
         """One change record at stage-local time ``t`` (offset applied)."""
-        t = int(t) + self._offset
-        self._changes.setdefault(t, []).append((code, float(value)))
-        if t + 1 > self._t_end:
-            self._t_end = t + 1
+        self._add([int(t)], code, [float(value)])
 
     def dump_stream(self, name: str, values) -> None:
         """Record a full per-cycle value stream, change-compressed: the
         value at ``t=0`` is always dumped, later cycles only on change."""
+        import numpy as np
         code = self.add_signal(name)
-        prev = None
-        for t, v in enumerate(values):
-            v = float(v)
-            if prev is None or v != prev:
-                self.record(t, code, v)
-                prev = v
+        v = np.asarray(values, dtype=np.float64).ravel()
+        keep = np.ones(v.size, dtype=bool)
+        keep[1:] = v[1:] != v[:-1]     # NaN != NaN: a change, as in Python
+        self._add(np.flatnonzero(keep), code, v[keep])
+
+    def _add(self, times, code: str, values) -> None:
+        import numpy as np
+        t = np.asarray(times, dtype=np.int64) + self._offset
+        if t.size:
+            self._chunks.append((t, code, np.asarray(values, np.float64)))
+            self._t_end = max(self._t_end, int(t.max()) + 1)
 
     def advance(self, cycles: int) -> None:
         """Move the time origin forward (stage handover)."""
@@ -107,12 +113,33 @@ class VCDWriter:
         for code, name in self._vars:
             lines.append(f"$var real 64 {code} {_vcd_ident(name)} $end")
         lines += ["$upscope $end", "$enddefinitions $end"]
-        for t in sorted(self._changes):
-            lines.append(f"#{t}")
-            for code, v in self._changes[t]:
-                lines.append(f"{self._fmt(v)} {code}")
+        if self._chunks:
+            lines += self._records()
         lines.append(f"#{self._t_end}")
         return "\n".join(lines) + "\n"
+
+    def _records(self) -> list[str]:
+        """Every ``#t`` marker and change record: times ascending, records
+        of one time in recording order; each distinct value (bit pattern,
+        so ``-0`` stays apart from ``0``) formatted once."""
+        import numpy as np
+        chunks = self._chunks
+        t = np.concatenate([c[0] for c in chunks])
+        v = np.concatenate([c[2] for c in chunks])
+        ci = np.repeat(np.arange(len(chunks)), [len(c[0]) for c in chunks])
+        order = np.argsort(t, kind="stable")
+        t, v, ci = t[order], v[order], ci[order]
+        bits, inv = np.unique(v.view(np.int64), return_inverse=True)
+        fmt = [self._fmt(x) for x in bits.view(np.float64).tolist()]
+        codes = [c[1] for c in chunks]
+        recs = [f"{fmt[u]} {codes[c]}"
+                for u, c in zip(inv.ravel().tolist(), ci.tolist())]
+        starts = np.flatnonzero(np.r_[True, t[1:] != t[:-1]]).tolist()
+        out: list[str] = []
+        for s, e in zip(starts, starts[1:] + [len(recs)]):
+            out.append(f"#{int(t[s])}")
+            out += recs[s:e]
+        return out
 
     def save(self, path: str | None = None) -> str:
         """Write :meth:`render` to ``path`` (or the constructor path);

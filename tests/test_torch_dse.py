@@ -631,13 +631,15 @@ def test_port_cache_save_merges_what_another_writer_saved(tmp_path):
 
 def test_cli_prefills_the_cache(tmp_path, capsys):
     path = tmp_path / "c.json"
+    to = ["--out", str(tmp_path / "sweep.json")]
     assert PB.main(["--space", "tiny", "--configs", "gemma_7b", "--reduced",
-                    "--seq", "64", "--d-tile", "4", "--device", "cpu",
-                    "--cache-path", str(path)]) == 0
+                    "--seq", "64", "--design-batch", "--d-tile", "4",
+                    "--device", "cpu", "--cache-path", str(path)] + to) == 0
     out = capsys.readouterr().out
     assert "designs in" in out and "candidates/s" in out
     n = len(RCache.MappingCache(path))
     assert n > 0
     PB.main(["--space", "tiny", "--configs", "gemma_7b", "--reduced",
-             "--seq", "64", "--device", "cpu", "--cache-path", str(path)])
+             "--seq", "64", "--design-batch", "--device", "cpu",
+             "--cache-path", str(path)] + to)
     assert "0 entries added" in capsys.readouterr().out

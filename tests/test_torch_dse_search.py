@@ -568,9 +568,9 @@ def test_cli_on_the_cpu_prints_the_reference_frontier(ref_small, tmp_path,
     reference's sweep here has the Gemmini baseline, which does not move
     the frontier) and the sweep's JSON at --out."""
     out = tmp_path / "sweep.json"
-    assert PB.main(_CLI + ["--device", "cpu", "--cache-path",
-                           str(tmp_path / "c.json"), "--out",
-                           str(out)]) == 0
+    assert PB.main(_CLI + ["--design-batch", "--device", "cpu",
+                           "--cache-path", str(tmp_path / "c.json"),
+                           "--out", str(out)]) == 0
     text = capsys.readouterr().out
     assert RR.format_frontier(ref_small) in text
     assert "60 designs in 20 tiles" in text and "0 misses" in text
@@ -587,7 +587,8 @@ def test_cli_evolve_runs_the_guided_search(zoo, tmp_path, capsys):
     assert PB.main(["--space", "huge", "--reduced", "--seq", "64",
                     "--strategy", "evolve", "--budget", "12", "--seed", "2",
                     "--engine", "numpy", "--device", "cpu", "--cache-path",
-                    str(tmp_path / "c.json")]) == 0
+                    str(tmp_path / "c.json"), "--out",
+                    str(tmp_path / "o.json")]) == 0
     want = RSearch.evolve_search(RS.SPACES["huge"], _ref_ev(zoo), budget=12,
                                  seed=2)
     assert RR.format_frontier(want) in capsys.readouterr().out

@@ -374,15 +374,23 @@ def test_generator_chain_imports_torch_but_never_initialises_cuda():
 
 
 def test_chip_smoke_recipes_are_the_reference_designs():
-    """chip_smoke.py phase 12 writes the designs' loops out (the port does
-    not import benchmarks/): they are benchmarks/designs.py's."""
+    """chip_smoke.py phase 12 builds the designs from repro_torch.designs
+    (the port does not import benchmarks/): their loops are
+    benchmarks/designs.py's."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    for name, rows in chip_smoke.GEN_DESIGNS.items():
+    assert chip_smoke.GEN_DESIGNS == FUSED
+    for name in chip_smoke.GEN_DESIGNS:
         want = [(w.name, d.name, [(l.dim, l.size) for l in d.spatial],
                  [(l.dim, l.size) for l in d.temporal],
                  tuple(int(v) for v in d.c)) for w, d in DESIGNS[name]()]
-        assert [(w, n, list(s), list(t), tuple(c))
-                for w, n, s, t, c in rows] == want
+        got = [(w.name, d.name, [(l.dim, l.size) for l in d.spatial],
+                [(l.dim, l.size) for l in d.temporal],
+                tuple(int(v) for v in d.c))
+               for w, d in chip_smoke._gen_recipe(name)]
+        assert got == want
     long = chip_smoke._gen_recipe("Conv2d-MNICOC", chip_smoke.GEN_LONG_OHOW)
     assert long[1][1].total_cycles == 112_896
+    assert [(l.dim, l.size) for l in long[1][1].temporal] == [
+        ("n", 1), ("oc", 2), ("ic", 2), ("oh", 56), ("ow", 56), ("kh", 3),
+        ("kw", 3)]

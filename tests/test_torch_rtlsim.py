@@ -3,7 +3,9 @@ oracle, the FU-level simulator (``funcsim.simulate``) and the netlist
 simulator (``rtlsim.simulate_rtl``), single-stage and staged, with their
 counters, checks and introspection records; the VCD writer; and the FIFO
 word the port's emitter programs (the repair of the reference's
-``fifo_programmed_delay``).
+``fifo_programmed_delay``) and the LP rows that keep a FIFO fed by a FIFO
+within its capacity (no row, and the reference's Verilog, where no FIFO
+feeds a FIFO).
 
 Tolerances: every comparison is exact (``array_equal``, ``==``) except the
 softmax stage of the staged attention run across packages: P = softmax(S)
@@ -27,11 +29,15 @@ from conftest import given, settings, st
 from repro.core.adg import generate_adg as ref_generate_adg
 from repro.core.dag import codegen as ref_codegen
 from repro.core.dataflow import build_dataflow as ref_build_dataflow
+from repro.core.emit import emit_netlist as ref_emit_netlist
 from repro.core.passes import run_backend as ref_run_backend
+from repro.obs import METRICS as RMETRICS
 from repro_torch.core.adg import generate_adg
 from repro_torch.core.dag import codegen
 from repro_torch.core.emit import emit_netlist
-from repro_torch.core.passes import delay_matching, run_backend
+from repro_torch.core.passes import (_chain_fifo_terms, delay_matching,
+                                     run_backend)
+from repro_torch.obs import METRICS as PMETRICS
 from repro_torch.obs import VCDWriter
 
 # relative gate of the PV stage behind a softmax, across packages
@@ -288,6 +294,29 @@ def test_tiny_netlist_waveform_matches_the_golden_vcd(tmp_path):
     assert out.read_text().startswith("$comment")
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_vcd_writer_renders_the_references_text(seed):
+    """Streams with repeats, -0 beside 0, NaNs and infinities, single
+    records and a stage handover: the port's writer gives the reference's
+    text byte for byte."""
+    from repro.obs import VCDWriter as RefVCDWriter
+    r = np.random.default_rng(seed)
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1e-300, 0.1])
+    writers = (RefVCDWriter(design="d"), VCDWriter(design="d"))
+    for stage in range(2):
+        streams = [np.where(r.random(40) < 0.3, r.choice(special, 40),
+                            r.integers(-2, 3, 40).astype(float))
+                   for _ in range(5)]
+        for w in writers:
+            for k, v in enumerate(streams):
+                w.dump_stream(f"s{k}[{stage}]", v)
+            code = w.add_signal("one-off")
+            w.record(3, code, -0.0)
+            w.record(3, code, float(stage))
+            w.advance(41)
+    assert writers[1].render() == writers[0].render()
+
+
 def test_staged_vcd_matches_the_reference(tmp_path):
     """Both stages of the fused attention run in one waveform file: the
     port's text is the reference's, byte for byte."""
@@ -345,6 +374,86 @@ def test_fifo_word_repair_at_the_falsifying_example():
     words = [f"16'd{fifos[nid]['delay']}" for nid in sorted(fifos,
                                                               reverse=True)]
     assert "assign cfg_o = {" + ", ".join(words) + "};" in text
+
+
+# the 30 of the 216 conv tilings (p 2-4, kh 1-3, ic and oc 1-2, c (0, 0) /
+# (0, 1) / (1, 1), both back-end modes) where, with the word repaired, a
+# FIFO fed by a FIFO needed a delay past its capacity: all on the Fig. 10
+# baseline back end (optimize=False), as (p, kh, ic, oc, c)
+FIFO_CHAIN_TILINGS = [
+    (2, 3, 1, 1, (0, 1)), (2, 3, 1, 2, (0, 1)), (2, 3, 2, 1, (0, 1)),
+    (2, 3, 2, 2, (0, 1)), (3, 1, 1, 1, (1, 1)), (3, 1, 1, 2, (1, 1)),
+    (3, 1, 2, 1, (1, 1)), (3, 1, 2, 2, (1, 1)), (3, 3, 1, 1, (0, 1)),
+    (3, 3, 1, 2, (0, 1)), (3, 3, 2, 1, (0, 1)), (3, 3, 2, 2, (0, 1)),
+    (4, 1, 1, 1, (1, 1)), (4, 1, 1, 2, (1, 1)), (4, 1, 2, 1, (0, 1)),
+    (4, 1, 2, 1, (1, 1)), (4, 1, 2, 2, (0, 1)), (4, 1, 2, 2, (1, 1)),
+    (4, 2, 1, 1, (1, 1)), (4, 2, 1, 2, (1, 1)), (4, 2, 2, 1, (1, 1)),
+    (4, 2, 2, 2, (1, 1)), (4, 3, 1, 1, (0, 1)), (4, 3, 1, 1, (1, 1)),
+    (4, 3, 1, 2, (0, 1)), (4, 3, 1, 2, (1, 1)), (4, 3, 2, 1, (0, 1)),
+    (4, 3, 2, 1, (1, 1)), (4, 3, 2, 2, (0, 1)), (4, 3, 2, 2, (1, 1))]
+
+
+def _tiling(p, kh, ic, oc, c):
+    wl = RW.conv2d()
+    return wl, ref_build_dataflow(
+        wl, spatial=[("ow", p), ("oh", p)],
+        temporal=[("n", 1), ("ow", 1), ("oh", 1), ("oc", oc), ("ic", ic),
+                  ("kh", kh), ("kw", kh)], c=c, name="conv-h")
+
+
+@pytest.mark.parametrize("p,kh,ic,oc,c", FIFO_CHAIN_TILINGS)
+def test_fifo_chain_within_capacity(p, kh, ic, oc, c):
+    """The LP keeps a chained FIFO's delay, measured between anchored
+    times, within [0, capacity]: the baseline back end's netlist runs
+    bit-exact, every word as the netlist needs it.  The reference still
+    raises here (at the word, Queue 3 item c)."""
+    wl, df = _tiling(p, kh, ic, oc, c)
+    (radg, rdag), (padg, pdag) = _pair(wl, df, optimize=False)
+    inputs = int_inputs(wl, df.sizes(), seed=0)
+    with pytest.raises(RS.RTLTimingError, match="emitted cfg word"):
+        RS.simulate_rtl(rdag, radg, df.name, inputs)
+    assert _chain_fifo_terms(pdag)
+    tin = to_torch(inputs)
+    res = PS.simulate_rtl(pdag, padg, df.name, tin)
+    assert torch.equal(res.output,
+                       PF.oracle(padg.spec(df.name).workload, df.sizes(),
+                                 tin))
+    fifos = res.checks["fifos"]
+    assert all(0 <= r["delay"] <= r["capacity"] and
+               r["programmed"] == r["delay"] for r in fifos.values())
+
+
+@pytest.mark.parametrize("p,kh,ic,oc,c,optimize", [
+    (2, 1, 1, 1, (0, 0), False), (2, 2, 2, 1, (1, 1), True),
+    (3, 2, 1, 2, (0, 1), False), (3, 3, 2, 1, (1, 1), True),
+    (3, 3, 2, 2, (0, 0), False)])
+def test_no_fifo_chain_leaves_the_lp_and_verilog_as_the_reference(
+        p, kh, ic, oc, c, optimize):
+    """Where no FIFO feeds a FIFO the LP gets no row more than the
+    reference's: the same row count, the same potentials, the same
+    Verilog bytes, and both netlists run equal."""
+    wl, df = _tiling(p, kh, ic, oc, c)
+    rows = (RMETRICS.counter("backend.lp_rows"),
+            PMETRICS.counter("backend.lp_rows"))
+    before = [int(r.as_number()) for r in rows]
+    (radg, rdag), (padg, pdag) = _pair(wl, df, optimize=optimize)
+    added = [int(r.as_number()) - b for r, b in zip(rows, before)]
+    assert not any(pdag.nodes[e.src].elastic and pdag.nodes[e.dst].elastic
+                   for e in pdag.edges)
+    assert _chain_fifo_terms(pdag) == [] and added[0] == added[1] > 0
+    assert norm(pdag.sched) == norm(rdag.sched)
+    assert emit_netlist(pdag) == ref_emit_netlist(rdag)
+    inputs = int_inputs(wl, df.sizes(), seed=1)
+    _same_rtl(PS.simulate_rtl(pdag, padg, df.name, to_torch(inputs)),
+              RS.simulate_rtl(rdag, radg, df.name, inputs))
+
+
+@pytest.mark.parametrize("design", ["GEMM-MJ", "Conv2d-MNICOC", "MTTKRP-MJ",
+                                    "Attention"])
+def test_fused_designs_have_no_fifo_chain(design):
+    (_, rdag, _), (_, pdag, _) = fused_pair(design)
+    assert _chain_fifo_terms(pdag) == []
+    assert norm(pdag.sched) == norm(rdag.sched)
 
 
 def test_corrupted_delay_matching_is_caught():
