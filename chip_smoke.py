@@ -242,6 +242,16 @@ Phases, each of which stops the run with a non-zero exit on failure:
       one-architecture winner) against ``--engine numpy``;
    c. a sweep of ``tiny`` with ``--nets MobileNetV2 --emit-dir`` against
       ``--engine numpy``, its JSON fed to ``generate_accelerator --dse``.
+14. the paper's evaluation: ``python -m repro_torch.paper_figures`` (the
+   twin of ``benchmarks/run.py``), whole, on the card in this process
+   (every network of Fig. 11 and Tables II and V mapped by the torch
+   engine there, K1 timed at 512 x 512 fp32 by ``kernel_micro``; the
+   kernels' counters reset before and read after: 11 K1 launches and no
+   other) and with ``--device cpu`` in a process of its own started
+   alongside: all 46 rows, each row's name and every field but its timings
+   equal; each row's seconds logged card / CPU beside the card's name and
+   power limit; K1's product on ``kernel_micro``'s inputs held to its
+   plain version (1e-5 of the output's scale).
 
 The seconds of each phase are logged at the end.
 
@@ -1594,6 +1604,10 @@ def main() -> int:
     # ---- 13. the front doors on the card ------------------------------------
     mark("13")
     _front_doors(dev, smi, t_start)
+
+    # ---- 14. the paper's evaluation on the card -----------------------------
+    mark("14")
+    _paper_figures(dev, smi, t_start)
 
     mark("end")
     log("per-phase seconds: " + ", ".join(
@@ -3737,7 +3751,7 @@ def _generator(dev, smi: str, t_start: float) -> None:
 _WALL_S = r"(generation time: |\) in |configs in )[0-9.]+s"
 
 
-def _front_run(main, argv, cwd: Path) -> tuple[str, float]:
+def _front_run(main, argv, cwd: Path, phase="13") -> tuple[str, float]:
     """A front door's ``main(argv)`` run in-process from ``cwd``: its
     standard output and its seconds.  The metrics registry starts empty,
     as in a process of its own."""
@@ -3757,7 +3771,8 @@ def _front_run(main, argv, cwd: Path) -> tuple[str, float]:
     finally:
         os.chdir(here)
     if rc != 0:
-        fail(f"13: {' '.join(argv)} returned {rc}\n{buf.getvalue()[-2000:]}")
+        fail(f"{phase}: {' '.join(argv)} returned {rc}\n"
+             f"{buf.getvalue()[-2000:]}")
     return buf.getvalue(), time.perf_counter() - t0
 
 
@@ -3766,11 +3781,11 @@ class _Counterpart:
     process of its own, CUDA hidden, started at once so that it runs
     beside the card's run; a thread notes when it ends."""
 
-    def __init__(self, module: str, argv: list, cwd: Path):
+    def __init__(self, module: str, argv: list, cwd: Path, phase="13"):
         import os
         import threading
         cwd.mkdir(parents=True, exist_ok=True)
-        self.argv = argv
+        self.argv, self.phase = argv, phase
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", module, *argv], cwd=cwd,
@@ -3789,8 +3804,9 @@ class _Counterpart:
     def result(self) -> tuple[str, float]:
         self.thread.join(timeout=600)
         if self.proc.returncode != 0:
-            fail(f"13: {' '.join(self.argv)} on the CPU returned "
-                 f"{self.proc.returncode}\n{self.err[-2000:]}")
+            fail(f"{self.phase}: {' '.join(self.argv)} on the CPU returned "
+                 f"{self.proc.returncode}\n{self.err[-2000:]}"
+                 f"\n{self.out[-2000:]}")
         return self.out, self.seconds
 
     def stop(self) -> None:
@@ -3807,15 +3823,20 @@ def _front_same(what, a: str, b: str) -> None:
 
 
 def _sweep_payload(path: Path) -> dict:
-    """A sweep's JSON without its walls, provenance, engine and device
-    (what differs between the two engines' runs by design), and without
-    what ``--emit-dir`` adds: the netlists' paths and the back end's
-    metrics."""
+    """A sweep's JSON without its walls, provenance, engine, device and the
+    engine micro-benchmark the torch engine implies, with the candidates
+    its batch enumerated taken out of the metrics (what differs between
+    the two engines' runs by design), and without what ``--emit-dir``
+    adds: the netlists' paths and the back end's metrics."""
     d = json.loads(path.read_text())
     for k in ("wall_s", "provenance", "artifacts"):
         d.pop(k, None)
     for k in ("total_wall_s", "engine", "device"):
         d["meta"].pop(k, None)
+    bench = d["meta"].pop("engine_bench", None)
+    if bench is not None:
+        d["metrics"]["counters"]["mapper.candidates_enumerated"] -= \
+            bench["candidates"]
     for e in d["frontier"] + d["designs"]:
         e.pop("rtl", None)
     for part in d["metrics"].values():
@@ -3908,6 +3929,13 @@ def _front_doors(dev, smi: str, t_start: float) -> None:
         for line in got.splitlines():
             if line.startswith("== cross-model winner"):
                 log(f"     {line}")
+        bench = json.loads((work / "models_card" / "m.json").read_text())[
+            "meta"]["engine_bench"]
+        log(f"     engine_bench ({bench['candidates']} candidates): "
+            f"numpy warm {bench['engines']['numpy']['warm_ms']:.3f} ms, "
+            f"torch on the card cold "
+            f"{bench['engines']['torch']['cold_ms']:.3f} ms, warm "
+            f"{bench['engines']['torch']['warm_ms']:.3f} ms")
 
         # 13c. a sweep with a CNN and the frontier's Verilog, whose JSON
         # feeds generate_accelerator --dse
@@ -3940,6 +3968,111 @@ def _front_doors(dev, smi: str, t_start: float) -> None:
             o.stop()
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 13 done in {time.perf_counter() - t_phase:.1f}s "
+        f"(script at {time.perf_counter() - t_start:.1f}s) [{smi}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the paper's evaluation on the card
+# ---------------------------------------------------------------------------
+
+# the fields of the paper_figures rows that time something; every other
+# field must be the same string on the card and on the CPU ("speedup"
+# times something only in the micro rows)
+_PAPER_TIMING = ("gen_time_s", "unmemoized_us", "memoized_us", "scalar_us",
+                 "batched_us", "gflops")
+PAPER_ROWS = 46        # benchmarks/run.py's rows, whole
+
+
+def _paper_rows(what: str, text: str) -> list[tuple[str, int, list, str]]:
+    """``(name, us_per_call, fields with the timings masked, derived)`` of
+    each row of a ``paper_figures`` run's standard output."""
+    lines = text.splitlines()
+    if not lines or lines[0] != "name,us_per_call,derived":
+        fail(f"14 {what}: no CSV header\n{text[-1500:]}")
+    out = []
+    for line in lines[1:]:
+        name, us, derived = line.split(",", 2)
+        if "ERROR=" in derived:
+            fail(f"14 {what}: {line}")
+        fields = [f"{f.split('=', 1)[0]}=<t>"
+                  if f.split("=", 1)[0] in _PAPER_TIMING
+                  or (f.startswith("speedup=") and name.startswith("micro."))
+                  else f for f in derived.split(";")]
+        out.append((name, int(us), fields, derived))
+    return out
+
+
+def _paper_figures(dev, smi: str, t_start: float) -> None:
+    """Phase 14: ``python -m repro_torch.paper_figures``, whole, on the
+    card (in this process, the kernels' counters reset before and read
+    after: K1 launched 11 times, by ``kernel_micro``, and nothing else)
+    and with ``--device cpu`` in a process of its own started alongside:
+    every row's name and every field that is not a timing equal; each
+    row's seconds logged card / CPU; K1's 512 x 512 fp32 product with the
+    row's inputs held to its plain version."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import paper_figures as PF
+    from repro_torch.kernels import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    log(f"phase 14 the paper's evaluation [{smi}]")
+    scratch = ROOT / ".chipscratch"
+    scratch.mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="paper_", dir=scratch))
+    cpu = None
+    try:
+        cpu = _Counterpart("repro_torch.paper_figures", ["--device", "cpu"],
+                           work / "cpu", phase="14")
+        for fn, name in ops.COUNTERS:
+            setattr(fn, name, 0)
+        got, t_card = _front_run(PF.main, ["--device", str(dev)],
+                                 work / "card", phase="14")
+        torch.cuda.synchronize()
+        counts = dict(zip((f"{fn.__name__}.{name}"
+                           for fn, name in ops.COUNTERS),
+                          ops.launch_counts()))
+        want_counts = {k: 0 for k in counts}
+        want_counts["gemm_cuda.launches"] = 11
+        if counts != want_counts:
+            fail(f"14: kernel launches over the card's run {counts}, want "
+                 f"{want_counts} (K1 in kernel_micro: 1 warm-up + 10)")
+        want, t_cpu = cpu.result()
+        card_rows = _paper_rows("card", got)
+        cpu_rows = _paper_rows("CPU", want)
+        if len(card_rows) != PAPER_ROWS:
+            fail(f"14: {len(card_rows)} rows on the card, want "
+                 f"{PAPER_ROWS}")
+        for (n1, us1, f1, d1), (n2, us2, f2, _) in zip(card_rows, cpu_rows):
+            if (n1, f1) != (n2, f2):
+                fail(f"14: row {n1} on the card {';'.join(f1)} differs "
+                     f"from the CPU's {n2} {';'.join(f2)}")
+            log(f"  14 {n1}: {us1} / {us2} us (card / CPU); card {d1}")
+        if len(cpu_rows) != len(card_rows):
+            fail(f"14: {len(cpu_rows)} rows on the CPU, "
+                 f"{len(card_rows)} on the card")
+        log(f"  14 paper_figures: card {t_card:.1f} s (this process), CPU "
+            f"{t_cpu:.1f} s (a process of its own, alongside); "
+            f"{len(card_rows)} rows, every field but the timings equal; K1 "
+            f"launched {counts['gemm_cuda.launches']} times, nothing else")
+
+        # K1 at the row's shape and inputs against its plain version
+        gen = torch.Generator().manual_seed(0)
+        a = torch.randn(512, 512, generator=gen).to(dev)
+        b = torch.randn(512, 512, generator=gen).to(dev)
+        check_gemm("14 K1 512x512 fp32 (kernel_micro's inputs)",
+                   ops.gemm(a, b), a, b)
+    finally:
+        if cpu is not None:
+            cpu.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 14 done in {time.perf_counter() - t_phase:.1f}s "
         f"(script at {time.perf_counter() - t_start:.1f}s) [{smi}]")
 
 

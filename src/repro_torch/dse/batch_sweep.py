@@ -27,10 +27,12 @@ Candidate enumeration depends on a design only through its FU count, so:
    tiles; designs the ledger already holds skip prefill and evaluation.
 
 :func:`main` is the command line, with the reference's flags and meanings
-(all but ``--engine-bench``, the reference's JAX-engine micro-benchmark)
 plus ``--device``; the engine is ``torch`` on the card by default, and
-without a card it raises.  ``--design-batch`` (with ``--d-tile`` and
-``--snapshot-every``) runs :func:`batch_sweep`; otherwise
+without a card it raises.  ``--engine-bench`` (implied by ``--engine
+torch``, the default, and by ``--design-batch``) records
+:func:`engine_microbench` under ``meta["engine_bench"]``, the reference's
+layout with ``torch`` where it has ``jax``.  ``--design-batch`` (with
+``--d-tile`` and ``--snapshot-every``) runs :func:`batch_sweep`; otherwise
 :func:`~repro_torch.dse.search.run_search` does the work, each miss scored
 on the card.  It writes the reference's ``BENCH_dse.json`` layout (or
 ``BENCH_models.json`` with ``--models``) and, with ``--emit-dir``, one
@@ -52,15 +54,20 @@ from __future__ import annotations
 import argparse
 import os
 import signal
+import statistics
 import sys
 import time
 
 from ..configs import ARCH_IDS, resolve_ids
+from ..core import workload as W
 from ..core.fusion import estimate_data_nodes
-from ..core.mapper_batch import best_mappings_design, build_batch
+from ..core.mapper import SpatialChoice
+from ..core.mapper_batch import (best_mappings, best_mappings_design,
+                                 build_batch, evaluate_batch)
+from ..core.perf_model import HWConfig
 from ..core.perf_model_torch import ENGINES
 from ..frontend import PHASES, has_attention_rows
-from ..models.common import check_device
+from ..models.common import check_device, synchronize
 from ..obs import (METRICS, add_verbosity_flag, configure, enable_tracing,
                    get_logger, provenance_record, save_trace,
                    set_metrics_enabled, span)
@@ -81,11 +88,14 @@ _LOG = get_logger("dse.batch_sweep")
 
 __all__ = ["DEFAULT_TILE", "plan_tiles", "sweep_zoo", "prefill_queries",
            "new_stats", "prefill_tile", "prefill_sweep", "batch_sweep",
-           "main"]
+           "engine_microbench", "main"]
 
 # designs per tile: big enough that the design-invariant candidate math
 # amortizes over the whole tile
 DEFAULT_TILE = 32
+
+# the space whose designs engine_microbench's design-axis section sweeps
+DESIGN_AXIS_SPACE = "large"
 
 
 def plan_tiles(points: list[DesignPoint],
@@ -300,6 +310,109 @@ def batch_sweep(space: DesignSpace | list[DesignPoint],
                         supervisor=dict(pe.stats))
 
 
+def engine_microbench(repeats: int = 5, design_axis: bool = False,
+                      device="cuda") -> dict:
+    """Time the per-batch candidate fan-out on both engines.
+
+    One representative mapping batch (a transformer-ish GEMM fan-out) is
+    built once, then scored through ``evaluate_batch`` per engine:
+    ``numpy`` reports the median wall time, ``torch`` (on ``device``, each
+    call synchronised) the first call and the median of the calls after
+    it separately.  With ``design_axis`` a second section sweeps the
+    mapping solve for every design of :data:`DESIGN_AXIS_SPACE` — the
+    per-design loop on each engine against the tiled ``(D, C)``
+    design-axis dispatches on ``device`` — and records the speedup
+    ``--design-batch`` buys at the engine level.  The reference's layout
+    (``benchmarks/dse.py``), ``torch`` where it has ``jax``; recorded under
+    ``meta["engine_bench"]``.
+    """
+    dev = check_device(device)
+    wl = W.gemm()
+    hw = HWConfig(n_fus=256)
+    sps = [SpatialChoice(("i", "j"), (1, 1), "ij"),
+           SpatialChoice(("k", "j"), (1, 1), "jk")]
+    d = 2048
+    dims_list = [{"i": s, "j": j, "k": d}
+                 for s in (256, 512, 1024) for j in (d, 3 * d, 4 * d)]
+    ppu_list = [0.0] * len(dims_list)
+    batch = build_batch(wl, dims_list, sps, hw)
+
+    def timed(engine, n):
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            evaluate_batch(batch, hw, dims_list, ppu_list, engine=engine,
+                           device=dev)
+            synchronize(dev)
+            ts.append(time.perf_counter() - t)
+        return ts
+
+    out = {"workload": wl.name, "layers": len(dims_list),
+           "candidates": batch.n_candidates, "engines": {}}
+    out["engines"]["numpy"] = {
+        "warm_ms": statistics.median(timed("numpy", repeats)) * 1e3}
+    cold = timed("torch", 1)[0]
+    out["engines"]["torch"] = {
+        "cold_ms": cold * 1e3,
+        "warm_ms": statistics.median(timed("torch", repeats)) * 1e3}
+    if design_axis:
+        out["design_batch"] = _design_axis_bench(
+            wl, sps, dims_list, ppu_list, repeats, DESIGN_AXIS_SPACE, dev)
+    return out
+
+
+def _design_axis_bench(wl, sps, dims_list, ppu_list, repeats: int,
+                       space_name: str, device) -> dict:
+    """Mapping-solve wall clock over every design of one space: the
+    per-design ``best_mappings`` loop (the NumPy engine, and warm
+    per-design torch dispatches on ``device``) against the tiled
+    design-axis ``best_mappings_design`` path on ``device``.
+    ``speedup_vs_numpy_loop`` is the acceptance number for
+    ``--design-batch``."""
+    points = list(SPACES[space_name].enumerate())
+    queries = [(dims, ppu) for dims, ppu in zip(dims_list, ppu_list)]
+    tiles = plan_tiles(points, d_tile=DEFAULT_TILE)
+    # one candidate batch per FU count (enumeration only depends on the
+    # design through n_fus)
+    batches = {}
+    for tile in tiles:
+        if tile[0].n_fus not in batches:
+            batches[tile[0].n_fus] = build_batch(
+                wl, dims_list, sps, tile[0].hw_config())
+
+    def loop(engine):
+        t = time.perf_counter()
+        for p in points:
+            best_mappings(wl, queries, sps, p.hw_config(), engine=engine,
+                          device=device)
+        synchronize(device)
+        return time.perf_counter() - t
+
+    def batched():
+        t = time.perf_counter()
+        for tile in tiles:
+            best_mappings_design(
+                wl, queries, sps, [p.hw_config() for p in tile],
+                batch=batches[tile[0].n_fus], engine="torch", device=device)
+        synchronize(device)
+        return time.perf_counter() - t
+
+    loop_numpy_s = loop("numpy")
+    loop("torch")                    # warm the per-design dispatches
+    loop_torch_s = loop("torch")
+    cold_s = batched()
+    warm_s = statistics.median(batched() for _ in range(max(1, repeats - 2)))
+    return {"space": space_name, "designs": len(points),
+            "tiles": len(tiles), "d_tile": DEFAULT_TILE,
+            "layers": len(dims_list),
+            "loop_numpy_ms": loop_numpy_s * 1e3,
+            "loop_torch_warm_ms": loop_torch_s * 1e3,
+            "batched_cold_ms": cold_s * 1e3,
+            "batched_warm_ms": warm_s * 1e3,
+            "speedup_vs_numpy_loop": loop_numpy_s / warm_s,
+            "speedup_vs_torch_loop": loop_torch_s / warm_s}
+
+
 def _supervised(evaluator: Evaluator, workers: int,
                 supervisor: Supervisor | None) -> Supervisor:
     if supervisor is not None:
@@ -443,9 +556,14 @@ def main(argv=None) -> int:
                     help="mapping-miss scoring engine (results are "
                          "byte-identical across engines; default torch, "
                          "on --device; 'scalar' is the slow reference)")
+    ap.add_argument("--engine-bench", action="store_true",
+                    help="micro-benchmark the candidate fan-out on both "
+                         "engines and record it in the output meta "
+                         "(implied by --engine torch and --design-batch)")
     ap.add_argument("--device", default="cuda",
-                    help="where the torch engine and --design-batch score "
-                         "(default: cuda; no fallback to the CPU)")
+                    help="where the torch engine, --design-batch and "
+                         "--engine-bench score (default: cuda; no fallback "
+                         "to the CPU)")
     ap.add_argument("--emit-dir", default=None, metavar="DIR",
                     help="emit the frontier designs' wiring classes as "
                          "structural Verilog into DIR; BENCH_dse.json "
@@ -489,7 +607,7 @@ def main(argv=None) -> int:
     # the card unless the CPU is named; without one this raises
     device = (check_device(args.device)
               if args.engine == "torch" or args.design_batch
-              else args.device)
+              or args.engine_bench else args.device)
     space = SPACES[args.space or ("tiny" if args.quick else "small")]
     if args.models:
         try:
@@ -725,6 +843,13 @@ def main(argv=None) -> int:
         meta["prefill"] = stats
         if not args.quiet:
             _print_prefill(stats, args.d_tile, len(cache))
+    if args.engine == "torch" or args.engine_bench or args.design_batch:
+        # the design-axis section re-sweeps the large space at the engine
+        # level — keep it out of --quick runs
+        meta["engine_bench"] = engine_microbench(
+            design_axis=args.design_batch and not args.quick, device=device)
+        if not args.quiet:
+            _print_engine_bench(meta["engine_bench"])
     if args.models:
         write_models_json(out, result, model_ids=configs,
                           baselines=evaluator.baselines, meta=meta,
@@ -745,6 +870,20 @@ def main(argv=None) -> int:
           f"{wall:.1f}s (workers={args.workers}; mapper cache: "
           f"{cs['hits']} hits / {cs['misses']} misses{extra}); wrote {out}")
     return 0
+
+
+def _print_engine_bench(bench: dict) -> None:
+    for name, row in bench["engines"].items():
+        print(f"  engine_bench {name}: "
+              + ", ".join(f"{k}={v:.3f}" for k, v in row.items()))
+    db = bench.get("design_batch")
+    if db:
+        print(f"  engine_bench design_batch: {db['designs']} "
+              f"designs/{db['tiles']} tiles — numpy loop "
+              f"{db['loop_numpy_ms']:.0f}ms, torch loop "
+              f"{db['loop_torch_warm_ms']:.0f}ms, batched warm "
+              f"{db['batched_warm_ms']:.0f}ms "
+              f"({db['speedup_vs_numpy_loop']:.1f}x vs numpy loop)")
 
 
 def _print_prefill(s: dict, d_tile: int, n_cache: int) -> None:

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["BlockSpec", "ModelConfig", "rms_norm", "rope", "make_dense",
-           "softcap", "check_device"]
+           "softcap", "check_device", "synchronize"]
 
 
 @dataclass(frozen=True)
@@ -165,6 +165,14 @@ def check_device(device) -> torch.device:
             "device 'cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' explicitly to run the plain path on the CPU")
     return device
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 # ---------------------------------------------------------------------------

@@ -41,8 +41,8 @@ from ..models.common import ModelConfig
 from ..parallel.sharding import (distribute_tree, logical_to_spec,
                                  shard_params_spec)
 
-__all__ = ["ServeConfig", "CapturedStep", "build_serve_step", "generate",
-           "state_sharding_spec"]
+__all__ = ["ServeConfig", "CapturedStep", "build_serve_step",
+           "decode_state_shapes", "generate", "state_sharding_spec"]
 
 
 @dataclass(frozen=True)
@@ -50,6 +50,18 @@ class ServeConfig:
     batch: int
     max_len: int
     temperature: float = 0.0
+
+
+def decode_state_shapes(cfg: ModelConfig, sc: ServeConfig) -> dict:
+    """The decode state tree of ``cfg`` at ``sc``'s batch and length, as
+    tensors on the ``meta`` device: every leaf's shape and dtype, no
+    memory allocated (the reference's ``jax.eval_shape`` of the state's
+    initialiser)."""
+    meta = torch.device("meta")
+    if cfg.is_encoder_decoder:
+        return ED.init_decode_state_encdec(cfg, sc.batch, sc.max_len,
+                                           device=meta)
+    return TF.init_decode_state(cfg, sc.batch, sc.max_len, device=meta)
 
 
 _STATE_LOGICAL = {

@@ -629,7 +629,9 @@ def test_port_cache_save_merges_what_another_writer_saved(tmp_path):
     assert RCache.MappingCache(path).get("a") == {"perf": {"cycles": 1.0}}
 
 
-def test_cli_prefills_the_cache(tmp_path, capsys):
+def test_cli_prefills_the_cache(tmp_path, capsys, monkeypatch):
+    # the engine micro-benchmark's design-axis section sweeps tiny
+    monkeypatch.setattr(PB, "DESIGN_AXIS_SPACE", "tiny")
     path = tmp_path / "c.json"
     to = ["--out", str(tmp_path / "sweep.json")]
     assert PB.main(["--space", "tiny", "--configs", "gemma_7b", "--reduced",

@@ -563,10 +563,12 @@ def test_cli_refuses_a_missing_card(monkeypatch, tmp_path, strategy):
 
 
 def test_cli_on_the_cpu_prints_the_reference_frontier(ref_small, tmp_path,
-                                                      capsys):
+                                                      capsys, monkeypatch):
     """--device cpu: prefill, evaluate, the reference's frontier text (the
     reference's sweep here has the Gemmini baseline, which does not move
-    the frontier) and the sweep's JSON at --out."""
+    the frontier) and the sweep's JSON at --out.  The engine
+    micro-benchmark's design-axis section sweeps ``tiny``."""
+    monkeypatch.setattr(PB, "DESIGN_AXIS_SPACE", "tiny")
     out = tmp_path / "sweep.json"
     assert PB.main(_CLI + ["--design-batch", "--device", "cpu",
                            "--cache-path", str(tmp_path / "c.json"),

@@ -236,16 +236,26 @@ _FRONTIER = re.compile(r"== Pareto frontier.*?best\[   edp\]: \S+", re.S)
 
 def _payload(path: Path, port: bool) -> dict:
     """The sweep JSON without walls and provenance; the port's engine and
-    device fields checked and dropped."""
+    device fields checked and dropped, and so is the engine
+    micro-benchmark its torch engine implies (the reference's NumPy engine
+    runs none; a partial artifact has none), with the candidates its batch
+    enumerated taken out of the metrics."""
     d = json.loads(path.read_text())
     d.pop("wall_s"), d.pop("provenance")
     meta = d["meta"]
     meta.pop("total_wall_s")
     engine = meta.pop("engine")
+    bench = meta.pop("engine_bench", None)
     if port:
         assert engine == "torch" and meta.pop("device") == "cpu"
+        if meta.get("partial"):
+            assert bench is None
+        else:
+            assert list(bench["engines"]) == ["numpy", "torch"]
+            d["metrics"]["counters"]["mapper.candidates_enumerated"] -= \
+                bench["candidates"]
     else:
-        assert engine == "numpy"
+        assert engine == "numpy" and bench is None
     return d
 
 
@@ -278,11 +288,10 @@ def _flags(cmd: list[str]) -> set[str]:
 
 
 def test_cli_takes_the_reference_flags():
-    """Every flag of benchmarks/dse.py but --engine-bench (the reference's
-    JAX-engine micro-benchmark), and --device."""
-    want = _flags(["benchmarks/dse.py"]) - {"--engine-bench"}
+    """Every flag of benchmarks/dse.py, and --device."""
+    want = _flags(["benchmarks/dse.py"])
     got = _flags(["-m", "repro_torch.dse.batch_sweep"])
-    assert "--emit-dir" in want and "--design-batch" in want
+    assert "--emit-dir" in want and "--engine-bench" in want
     assert want <= got and got - want == {"--device"}
 
 
@@ -390,6 +399,7 @@ def test_cli_design_batch_is_the_per_design_sweep(tmp_path, capsys,
     per-design frontier."""
     want = _ref(["benchmarks/dse.py", *TINY, "--engine", "numpy", "--out",
                  "out.json"], tmp_path / "ref")
+    monkeypatch.setattr(PB, "DESIGN_AXIS_SPACE", "tiny")
     rc, got = _port(PB.main, [*TINY, "--design-batch", "--d-tile", "4",
                               "--out", "out.json"], tmp_path / "port",
                     capsys, monkeypatch)
@@ -400,6 +410,112 @@ def test_cli_design_batch_is_the_per_design_sweep(tmp_path, capsys,
     b = _payload(tmp_path / "ref" / "out.json", False)
     assert a["frontier"] == b["frontier"] and a["designs"] == b["designs"]
     assert a["meta"]["prefill"]["entries_added"] > 0
+
+
+# ---------------------------------------------------------------------------
+# --engine-bench against benchmarks/dse.py's engine_microbench
+# ---------------------------------------------------------------------------
+
+def _masked(bench: dict) -> dict:
+    """The micro-benchmark's layout and every value that is not a time."""
+    return {k: ("<t>" if k.endswith("_ms") or k.startswith("speedup")
+                else _masked(v) if isinstance(v, dict) else v)
+            for k, v in bench.items()}
+
+
+def _times(bench: dict) -> list[float]:
+    return [t for k, v in bench.items()
+            for t in (_times(v) if isinstance(v, dict) else
+                      [v] if k.endswith("_ms") or k.startswith("speedup")
+                      else [])]
+
+
+def test_engine_bench_is_the_reference_s_layout(monkeypatch):
+    """engine_microbench with its design-axis section over ``tiny``: the
+    reference's keys, with torch where it has jax, and its values but the
+    times.  The reference's JAX engine does not run on this jax, so its
+    NumPy engine stands in for it (the layout does not depend on it)."""
+    import benchmarks.dse as RDSE
+    import repro.core.mapper_batch as RMB
+    import repro.core.perf_model_jax as RJ
+
+    def numpy_engine(fn):
+        def call(*args, engine="numpy", **kwargs):
+            return fn(*args, engine="numpy" if engine == "jax" else engine,
+                      **kwargs)
+        return call
+
+    best = RMB.best_mappings
+
+    def design_loop(wl, queries, sps, hw_list, min_c=1, min_l=4, min_d=1,
+                    batch=None):
+        return [best(wl, queries, sps, hw) for hw in hw_list]
+
+    axis = RDSE._design_axis_bench
+    monkeypatch.setattr(RJ, "jax_available", lambda: True)
+    monkeypatch.setattr(RMB, "evaluate_batch",
+                        numpy_engine(RMB.evaluate_batch))
+    monkeypatch.setattr(RMB, "best_mappings", numpy_engine(best))
+    monkeypatch.setattr(RMB, "best_mappings_design", design_loop)
+    monkeypatch.setattr(RDSE, "_design_axis_bench",
+                        lambda *args: axis(*args, space_name="tiny"))
+    want = RDSE.engine_microbench(repeats=1, design_axis=True)
+    monkeypatch.setattr(PB, "DESIGN_AXIS_SPACE", "tiny")
+    got = PB.engine_microbench(repeats=1, design_axis=True, device="cpu")
+    want = json.loads(json.dumps(want).replace("jax", "torch"))
+    assert _masked(got) == _masked(want)
+    assert got["engines"]["torch"].keys() == {"cold_ms", "warm_ms"}
+    assert got["design_batch"]["designs"] == 6
+    assert all(t > 0 for t in _times(got))
+    assert "design_batch" not in PB.engine_microbench(repeats=1,
+                                                      device="cpu")
+
+
+def test_engine_bench_tiles_pick_the_loop_s_winners():
+    """The design-axis section's two paths agree: over every tile of
+    ``tiny``, best_mappings_design on the CPU's torch engine picks, design
+    by design, the mappings of the per-design NumPy loop."""
+    from repro_torch.core import workload as PW
+    from repro_torch.core.mapper import SpatialChoice
+    from repro_torch.core.mapper_batch import (best_mappings,
+                                               best_mappings_design)
+    from repro_torch.dse.space import SPACES
+
+    wl = PW.gemm()
+    sps = [SpatialChoice(("i", "j"), (1, 1), "ij"),
+           SpatialChoice(("k", "j"), (1, 1), "jk")]
+    queries = [({"i": s, "j": j, "k": 2048}, 0.0)
+               for s in (256, 512, 1024) for j in (2048, 6144, 8192)]
+    tiles = PB.plan_tiles(list(SPACES["tiny"].enumerate()))
+    assert len(tiles) > 1
+    for tile in tiles:
+        hws = [p.hw_config() for p in tile]
+        got = best_mappings_design(wl, queries, sps, hws, engine="torch",
+                                   device="cpu")
+        want = [best_mappings(wl, queries, sps, hw) for hw in hws]
+        assert norm(got) == norm(want)
+
+
+def test_cli_engine_bench(tmp_path, capsys, monkeypatch):
+    """--engine-bench with the NumPy engine records the micro-benchmark
+    (its torch half on --device) and prints its lines; --engine numpy
+    alone records none."""
+    args = ["--space", "tiny", "--configs", "gemma_7b", "--reduced", "--seq",
+            "64", "--engine", "numpy"]
+    rc, out = _port(PB.main, [*args, "--engine-bench", "--out", "a.json"],
+                    tmp_path, capsys, monkeypatch)
+    assert rc == 0
+    assert re.search(r"engine_bench numpy: warm_ms=[0-9.]+\n", out)
+    assert re.search(r"engine_bench torch: cold_ms=[0-9.]+, warm_ms=[0-9.]+",
+                     out)
+    meta = json.loads((tmp_path / "a.json").read_text())["meta"]
+    assert list(meta["engine_bench"]["engines"]) == ["numpy", "torch"]
+    assert "design_batch" not in meta["engine_bench"]
+    rc, _ = _port(PB.main, [*args, "-q", "--out", "b.json"], tmp_path, capsys,
+                  monkeypatch)
+    assert rc == 0
+    assert "engine_bench" not in json.loads(
+        (tmp_path / "b.json").read_text())["meta"]
 
 
 def test_cli_argument_errors(tmp_path, monkeypatch):
@@ -425,7 +541,8 @@ def test_both_front_doors_refuse_a_missing_card(tmp_path, monkeypatch):
         GA.main([])
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         GA.main(["--model", "rwkv6_7b", "--dry-run"])
-    for args in ([], ["--design-batch", "--engine", "numpy"], ["--dry-run"]):
+    for args in ([], ["--design-batch", "--engine", "numpy"], ["--dry-run"],
+                 ["--engine", "numpy", "--engine-bench"]):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             PB.main([*TINY, *args])
     assert list(tmp_path.iterdir()) == []

@@ -25,7 +25,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro.configs import get_config as jax_get_config
 from repro.models import transformer as JTF
 from repro.serve import engine as jengine
-from repro_torch.configs import PORTED_IDS, get_config
+from repro_torch.configs import ARCH_IDS, PORTED_IDS, get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.models import encdec as ED
@@ -259,3 +259,29 @@ def test_launch_counts_add_and_take_back():
     finally:
         ops.add_launch_counts([-d for d in delta])
     assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_state_shapes_match_reference(arch):
+    """serve.decode_state_shapes at full width (batch 4, 4096 positions):
+    every leaf's path, shape and dtype those of the reference's
+    jax.eval_shape, on the meta device (nothing allocated)."""
+    from repro_torch.serve import ServeConfig, decode_state_shapes
+    want = jengine.decode_state_shapes(
+        jax_get_config(arch), jengine.ServeConfig(batch=4, max_len=4096))
+    got = decode_state_shapes(get_config(arch),
+                              ServeConfig(batch=4, max_len=4096))
+    want = {tuple(k.key for k in path): (tuple(leaf.shape), str(leaf.dtype))
+            for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]}
+
+    def leaves(tree, path=()):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from leaves(v, path + (k,))
+        else:
+            yield path, tree
+
+    flat = dict(leaves(got))
+    assert all(t.device.type == "meta" for t in flat.values())
+    assert {k: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+            for k, t in flat.items()} == want
