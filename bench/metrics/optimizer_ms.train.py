@@ -1,0 +1,10 @@
+"""optimizer_ms.train: mean device ms a traced train step spends in its
+``train.optimizer`` span (AdamW in place), over the ``train.step`` roots
+of the slice traced on the device.  Read from the program's spans
+(``bench.spans``)."""
+
+from bench import spans
+
+
+def read(rec):
+    return spans.per_step(rec, "train.optimizer")

@@ -1,7 +1,7 @@
 """Metrics registry: counters, gauges and histograms for the DSE's hot
-paths (a copy of the reference's ``repro.obs.metrics``), dumped into the
-``metrics`` section of every sweep JSON :mod:`repro_torch.dse.report`
-writes, next to the provenance record.
+paths and the serving engine's calls (a copy of the reference's
+``repro.obs.metrics``), dumped into the ``metrics`` section of every sweep
+JSON :mod:`repro_torch.dse.report` writes, next to the provenance record.
 
 The registry is a process-global name → metric map.  Incrementing a counter
 is one dict lookup plus a float add — cheap enough to live inside the
@@ -14,9 +14,11 @@ Worker processes of a DSE sweep carry their own registry; workers return
 ``METRICS.merge()`` them (counters/histograms add, gauges keep the max), so
 the dumped metrics cover the whole pool.
 
-Metric names are dotted, ``subsystem.event``, and are the reference's
-(``dse.designs_scored``, ``mapper_cache.hits``, ...), so one name reads the
-same counter in either package's artifacts.
+Metric names are dotted, ``subsystem.event``; the DSE's are the
+reference's (``dse.designs_scored``, ``mapper_cache.hits``, ...), so one
+name reads the same counter in either package's artifacts; the serving
+engine's are the port's own (``engine.calls``, ``engine.captures``,
+``engine.replays``).
 """
 
 from __future__ import annotations

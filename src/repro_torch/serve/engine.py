@@ -23,10 +23,19 @@ token's device alone.
 The decode position lives in a 0-d int32 tensor on the device and is
 advanced there, so neither the kernels nor the graph make the host wait on
 the device between steps.
+
+While :func:`repro_torch.obs.recording`, :func:`generate` records the span
+tree ``engine.generate`` (the root, ``rid`` the call's sequence number,
+device-timed) → ``engine.state_init``, ``engine.capture`` (the eager step
+and the capture), ``engine.step`` (one a replay, or an eager step on the
+CPU, device-timed), the ``engine.first_token`` instant (a device event
+after the first new token) and ``engine.collect``; every call adds to the
+counters ``engine.calls``, ``engine.captures`` and ``engine.replays``.
 """
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from dataclasses import dataclass
 
@@ -38,6 +47,7 @@ from ..kernels import ops
 from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig
+from ..obs import METRICS, instant, recording, span
 from ..parallel.sharding import (distribute_tree, logical_to_spec,
                                  shard_params_spec)
 
@@ -147,7 +157,12 @@ class CapturedStep:
     ``local``: the params and state come as DTensors over a one-device
     mesh, and the step runs (and is captured) on their local tensors,
     which are the whole tensors.  ``eager``: never captured (a step on
-    DTensors over several devices, which runs eagerly)."""
+    DTensors over several devices, which runs eagerly).  ``timed``: each
+    replay (each eager step where nothing is captured) runs in an
+    ``engine.step`` span timed on the device; a capture runs in an
+    ``engine.capture`` span.  ``generate`` sets ``timed`` once a call
+    while recording, so that an untraced replay (~2 ms) does not pay a
+    span's ~1 µs of its own."""
 
     def __init__(self, eager, local: bool = False, captured: bool = True):
         self._eager = eager
@@ -156,6 +171,7 @@ class CapturedStep:
         self._graph = None
         self.captures = 0
         self.replays = 0
+        self.timed = False
 
     def __call__(self, params, state, token, pos, *extra):
         if self._local:
@@ -166,12 +182,21 @@ class CapturedStep:
 
     def _call(self, params, state, token, pos, *extra):
         if token.device.type == "cpu" or not self._captured:
-            return self._eager(params, state, token, pos, *extra)
-        bound = list(_leaves(params)) + list(_leaves(state))
-        inputs = tuple(_spec(t) for t in (token, pos, *extra))
-        if not self._holds(bound, inputs):
-            return self._capture(params, state, token, pos, extra, bound,
-                                 inputs)
+            run = self._eager
+        else:
+            bound = list(_leaves(params)) + list(_leaves(state))
+            inputs = tuple(_spec(t) for t in (token, pos, *extra))
+            if not self._holds(bound, inputs):
+                with span("engine.capture"):
+                    return self._capture(params, state, token, pos, extra,
+                                         bound, inputs)
+            run = self._replay
+        if self.timed:
+            with span("engine.step", device=True):
+                return run(params, state, token, pos, *extra)
+        return run(params, state, token, pos, *extra)
+
+    def _replay(self, params, state, token, pos, *extra):
         for static, new in zip(self._static, (token, pos, *extra)):
             if isinstance(new, torch.Tensor):
                 static.copy_(new)
@@ -270,6 +295,9 @@ def build_serve_step(cfg: ModelConfig, backend: str = "kernel", mesh=None):
     return captured
 
 
+_CALLS = itertools.count()
+
+
 def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
              backend: str = "kernel", mesh=None) -> torch.Tensor:
     """Greedy batched generation (decoder-only models).
@@ -278,37 +306,51 @@ def generate(params, cfg: ModelConfig, prompts: torch.Tensor, max_new: int,
     through one :func:`build_serve_step` step: on a card its first call
     runs eagerly and captures the graph, the others replay it.  With a
     ``mesh``, the params (the same on every rank) and the state are laid
-    out by the step's ``jit_with`` first."""
+    out by the step's ``jit_with`` first.  Its spans and counters: see
+    the module's docstring."""
     if cfg.is_encoder_decoder:
         raise ValueError(f"generate serves decoder-only models; drive "
                          f"{cfg.name} through build_serve_step with the "
                          "encoder's output")
     Bsz, Tp = prompts.shape
-    state = TF.init_decode_state(cfg, Bsz, Tp + max_new,
-                                 device=prompts.device)
-    step = build_serve_step(cfg, backend, mesh)
-    if mesh is not None:
-        step, params, state = step.jit_with(params, state)
-    pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
+    with span("engine.generate", rid=next(_CALLS), device=True, batch=Bsz,
+              prompt=Tp, new=max_new):
+        timed = recording()
+        with span("engine.state_init"):
+            state = TF.init_decode_state(cfg, Bsz, Tp + max_new,
+                                         device=prompts.device)
+            step = build_serve_step(cfg, backend, mesh)
+            if mesh is not None:
+                step, params, state = step.jit_with(params, state)
+            pos = torch.zeros((), dtype=torch.int32, device=prompts.device)
+        step.timed = timed
 
-    def greedy(logits):
-        if isinstance(logits, DTensor):
-            logits = logits.full_tensor()
-        return logits.argmax(-1).to(torch.int32)
+        def greedy(logits):
+            if isinstance(logits, DTensor):
+                logits = logits.full_tensor()
+            return logits.argmax(-1).to(torch.int32)
 
-    # teacher-forced prefill through the decode path (exact, cache-filling)
-    logits = None
-    for t in range(Tp):
-        logits, state = step(params, state, prompts[:, t], pos)
-        pos += 1
+        # teacher-forced prefill through the decode path (exact,
+        # cache-filling)
+        logits = None
+        for t in range(Tp):
+            logits, state = step(params, state, prompts[:, t], pos)
+            pos += 1
 
-    out = [prompts]
-    tok = greedy(logits)
-    for i in range(max_new):
-        out.append(tok[:, None])
-        if i == max_new - 1:
-            break
-        logits, state = step(params, state, tok, pos)
-        pos += 1
+        out = [prompts]
         tok = greedy(logits)
-    return torch.cat(out, dim=1)
+        if timed:
+            instant("engine.first_token", device=True)
+        for i in range(max_new):
+            out.append(tok[:, None])
+            if i == max_new - 1:
+                break
+            logits, state = step(params, state, tok, pos)
+            pos += 1
+            tok = greedy(logits)
+        with span("engine.collect"):
+            out = torch.cat(out, dim=1)
+    METRICS.counter("engine.calls").inc()
+    METRICS.counter("engine.captures").inc(step.captures)
+    METRICS.counter("engine.replays").inc(step.replays)
+    return out

@@ -15,7 +15,10 @@ and prompts can be served and its output compared line by line.
 Run:  PYTHONPATH=src python -m repro_torch.serve.serve_lm --batch 4 --new 24
       (--arch rwkv6_7b, mistral_nemo_12b, deepseek_moe_16b,
        llama4_scout_17b_a16e or phi_3_vision_4_2b for the others)
-      (add --device cpu to run the plain path on the CPU)
+      (add --device cpu to run the plain path on the CPU; --trace
+       OUT.json writes generate's spans as a Chrome trace, device times
+       in ``args``, and the counters ``engine.calls``, ``engine.captures``
+       and ``engine.replays`` as counter tracks)
 """
 
 import argparse
@@ -26,6 +29,7 @@ import torch
 from ..configs import PORTED_IDS, get_config
 from ..models import transformer as TF
 from ..models.common import ModelConfig, check_device
+from ..obs import METRICS, counter_events, enable_tracing, save_trace
 from .engine import generate
 
 
@@ -60,7 +64,13 @@ def main(argv=None):
     ap.add_argument("--new", type=int, default=24)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", metavar="OUT.json",
+                    help="record generate's spans and write them, with "
+                         "the run's counters, here as Chrome trace-event "
+                         "JSON")
     args = ap.parse_args(argv)
+    if args.trace:
+        enable_tracing()
 
     # fp32 products stay full fp32 on the card (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -79,6 +89,10 @@ def main(argv=None):
     out, lines = serve(params, cfg, prompts, args.new)
     for line in lines:
         print(line)
+    if args.trace:
+        save_trace(args.trace,
+                   counter_events(METRICS.snapshot()["counters"]))
+        print(f"trace: {args.trace}")
     return out
 
 

@@ -11,6 +11,10 @@ Checkpoints keep full tensors (``full_tensor()``).
 The model runs its plain path (``backend="ref"``), as the reference trains
 with ``KB = "ref"``: no kernel of :mod:`repro_torch.kernels` has a backward
 pass, and each refuses to run under autograd.
+
+The step runs forward and backward in a ``train.fwd_bwd`` span and AdamW
+in a ``train.optimizer`` span, both timed on the device while
+:func:`repro_torch.obs.recording`.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from ..models import encdec as ED
 from ..models import transformer as TF
 from ..models.common import ModelConfig, check_device
+from ..obs import span
 from ..optim.adamw import AdamWState, adamw_init, adamw_update, local
 from ..parallel.sharding import (Spec, distribute_tree, sharded_region,
                                  shard_params_spec)
@@ -161,14 +166,16 @@ def build_train_step(cfg: ModelConfig, mesh=None, *, lr=3e-4,
         if compress_grads and state.ef is None:
             raise ValueError("compress_grads needs a state made with "
                              "make_train_state(..., compress_grads=True)")
-        loss, metrics, grads = loss_and_grads(cfg, state.params, batch,
-                                              accum_steps, mesh)
+        with span("train.fwd_bwd", device=True):
+            loss, metrics, grads = loss_and_grads(cfg, state.params, batch,
+                                                  accum_steps, mesh)
         ef = state.ef
         if compress_grads:
             grads = _compress(grads, ef)
         lr_val = lr(local(state.opt.step)) if callable(lr) else lr
-        params, opt, om = adamw_update(state.params, grads, state.opt,
-                                       lr_val)
+        with span("train.optimizer", device=True):
+            params, opt, om = adamw_update(state.params, grads, state.opt,
+                                           lr_val)
         metrics = {**metrics, **om, "loss": metrics["ce"]}
         return TrainState(params, opt, ef), metrics
 

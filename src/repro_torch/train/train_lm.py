@@ -9,7 +9,9 @@ where the last checkpoint left off.  :func:`train` is the loop itself, for
 callers that bring their own state and batches.
 
 Run:  PYTHONPATH=src python -m repro_torch.train.train_lm --steps 200
-      (add --device cpu to train on the CPU)
+      (add --device cpu to train on the CPU; --trace OUT.json writes the
+      spans ``train.step`` → ``train.feed``, ``train.fwd_bwd``,
+      ``train.optimizer`` as a Chrome trace, device times in ``args``)
 """
 
 from __future__ import annotations
@@ -18,7 +20,6 @@ import argparse
 import dataclasses
 import os
 import tempfile
-import time
 from typing import NamedTuple
 
 import torch
@@ -28,6 +29,7 @@ from ..configs import get_config
 from ..data.pipeline import SyntheticLM, batch_at
 from ..ft import StragglerMonitor
 from ..models.common import BlockSpec, ModelConfig, check_device
+from ..obs import enable_tracing, save_trace, span
 from ..optim.adamw import cosine_schedule
 from .step import TrainState, build_train_step, make_train_state
 
@@ -52,16 +54,19 @@ def train(step_fn, state: TrainState, batches, start: int, stop: int, *,
           ckpt_every: int = 0, mon: StragglerMonitor | None = None,
           log=print):
     """Steps ``start`` … ``stop`` − 1 of ``step_fn`` on ``batches(i)``,
-    each timed to its end on the host clock (the loss is read every step);
-    the time goes to ``mon`` and, every ``ckpt_every`` steps, the state to
-    an asynchronous checkpoint of the step count reached.  Returns (state,
+    each timed to its end by its ``train.step`` span (``rid`` the step;
+    the feed in a ``train.feed`` span; the loss is read every step); the
+    time goes to ``mon`` and, every ``ckpt_every`` steps, the state to an
+    asynchronous checkpoint of the step count reached.  Returns (state,
     {step: loss})."""
     losses = {}
     for i in range(start, stop):
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batches(i))
-        losses[i] = float(metrics["loss"])
-        dt = time.perf_counter() - t0
+        with span("train.step", rid=i) as sp:
+            with span("train.feed"):
+                batch = batches(i)
+            state, metrics = step_fn(state, batch)
+            losses[i] = float(metrics["loss"])
+        dt = sp.duration_s
         if mon is not None:
             mon.record({0: dt})
         if i % 10 == 0 or i == stop - 1:
@@ -90,7 +95,12 @@ def main(argv=None) -> Run:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", metavar="OUT.json",
+                    help="record the run's spans and write them here as "
+                         "Chrome trace-event JSON")
     args = ap.parse_args(argv)
+    if args.trace:
+        enable_tracing()
 
     # fp32 products stay full fp32 on the card (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -124,6 +134,9 @@ def main(argv=None) -> Run:
     end = max(start, args.steps)
     mgr.save(end, state)
     print(f"done; checkpoints at {args.ckpt}: steps {mgr.all_steps()}")
+    if args.trace:
+        save_trace(args.trace)
+        print(f"trace: {args.trace}")
     return Run(state, losses, start)
 
 
